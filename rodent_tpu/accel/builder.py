@@ -381,10 +381,9 @@ def build_bvh(vertices, indices, arity=8, packet=4, leaf_threshold=4,
     (sweep SAH + spatial splits + unsplitting, the reference
     SplitBvhBuilder tier, src/driver/bvh.h:102-539); quality=0 is the
     faster binned-SAH build for huge scenes. leaf_cost > 0 overrides the
-    DP collapse's C_LEAF ratio (leaf-packet pop vs node pop): the default
-    1.2 fits the VMEM-resident packet kernel; tris_hbm builds should pass
-    ~3-4 (a leaf pop there also pays a ~1-2 us HBM DMA), trading node
-    pops for fewer, smaller-area leaf packets.
+    DP collapse's C_LEAF ratio (leaf-packet pop vs node pop, default
+    1.2); a higher ratio trades node pops for fewer, smaller-area leaf
+    packets.
     """
     vertices = np.asarray(vertices, np.float32)
     indices = np.asarray(indices, np.int32)

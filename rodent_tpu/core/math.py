@@ -1,9 +1,9 @@
 """Batched 3D vector math over trailing-axis-3 JAX arrays.
 
 The reference implements Vec3 math as structs-of-closures specialized by
-partial evaluation (src/core/vector.impala, src/core/matrix.impala). The TPU
+partial evaluation (src/core/vector.impala, src/core/matrix.impala). Here the
 analog is plain jnp arrays of shape (..., 3) so everything vectorizes over
-ray megabatches on the VPU; the "matrices" we need (orthonormal bases) are
+ray megabatches; the "matrices" we need (orthonormal bases) are
 kept as three basis-vector arrays rather than matrix objects so they fuse.
 """
 from __future__ import annotations

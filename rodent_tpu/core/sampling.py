@@ -8,7 +8,7 @@ core.vmath.basis_mul / core.math.basis_mul.
 Two forms of each sampler:
 - `*_c` returns the direction as a component tuple (x, y, z) of same-shape
   arrays — the production form used by render.bsdf / render.light (see
-  core.vmath for why component layout is the TPU-fast one);
+  core.vmath for why component layout is the fast one);
 - the unsuffixed form stacks into a trailing-axis vec3 (scalar-model form,
   used by oracle tests). Both share the same math (the `_c` body).
 """

@@ -1,7 +1,8 @@
 """(R, 128) tile-layout helpers shared by traversal and shading.
 
-B batch elements live as (R, 128) arrays (R = ceil(B/128)); see
-traversal/tiled.py for why this layout is mandatory on TPU.
+B batch elements live as (R, 128) arrays (R = ceil(B/128)): the
+component layout of core.vmath with a fixed row width, so every engine
+and shading stage shares one ray-slot indexing.
 """
 from __future__ import annotations
 
@@ -33,53 +34,20 @@ def pad_mask(b, r=None):
     return tile(jnp.ones(b, jnp.int32), r) == 1
 
 
-# Row gathers ride a fast XLA path only while the table stays under
-# ~28K rows AND ~11 MB (measured v5e: 2.5 ns/row vs 10.6 beyond, width-
-# independent; ROADMAP round-3 study). Tables up to 3x that limit are
-# cheaper gathered as 2-3 sub-table gathers + select (4.9 ns/row for 2
-# shards); at >=4 shards the per-shard full-batch cost breaks even with
-# the slow path, so large tables fall back to one plain gather.
-SHARD_ROWS = 22528
-
-
-def shard_count(n_rows):
-    """How many row shards gather_rows will use (1 = plain gather)."""
-    n = -(-n_rows // SHARD_ROWS)
-    return n if 2 <= n <= 3 else 1
-
-
-def gather_rows(table, idx_flat):
-    """(N, C) x (B,) i32 -> (B, C), automatically row-sharded when the
-    table sits in the slow-gather regime but within 3 shards."""
-    n, _c = table.shape
-    nsh = shard_count(n)
-    if nsh == 1:
-        return table[idx_flat]
-    s = -(-n // nsh)
-    out = None
-    for i in range(nsh):
-        loc = jnp.clip(idx_flat - i * s, 0, min(s, n - i * s) - 1)
-        g = table[i * s:min((i + 1) * s, n)][loc]
-        out = g if out is None else jnp.where(
-            (idx_flat >= i * s)[:, None], g, out)
-    return out
-
-
 def gather_cols(table, idx):
     """Flat row gather + relayout to component-major.
 
     table: (N, C); idx: (R, 128) int32. Returns (C, R, 128) so each
     component is a full-tile slice (single efficient gather + one
-    transpose; per-component gathers or multi-dim rows are 100x slower)."""
+    transpose)."""
     r = idx.shape[0]
-    rows = gather_rows(table, idx.reshape(r * 128))
+    rows = table[idx.reshape(r * 128)]
     return rows.T.reshape(table.shape[1], r, 128)
 
 
 # A ~32-deep where-chain is ~N+N*C cheap full-tile vector ops (no memory
-# indirection at all), far below even the fast-gather floor for full-pool
-# fetches — the same trick gather_material / render.light already use for
-# small tables, generalized to any packed row table.
+# indirection at all) — the same trick gather_material / render.light
+# use for small tables, generalized to any packed row table.
 SELECT_CHAIN_ROWS = 32
 
 
@@ -88,7 +56,7 @@ def gather_cols_select(table, idx):
     select chain: bit-identical values, zero gathers. Runs the chain on
     the int32 bitcast of the table — packed rows carry bitcast integer
     columns whose bit patterns are denormal as f32, and integer selects
-    can never flush them (f32 arithmetic on TPU would)."""
+    can never flush them (f32 arithmetic with flush-to-zero would)."""
     import jax
     n, c = table.shape
     ti = jax.lax.bitcast_convert_type(table, jnp.int32)

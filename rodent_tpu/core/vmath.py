@@ -1,11 +1,11 @@
 """Component-leading vector math: Vec3 as a tuple of three same-shape
 arrays.
 
-Why: XLA-TPU tiles an (N, 3) array as (8, 128) vector registers along the
-trailing axis, so (B, 3)/(B, 1) vector math wastes up to 127/128 VPU lanes
-(measured; see traversal/tiled.py). Keeping x/y/z as separate full-tile
-arrays — ideally shaped (R, 128) — runs the same math at full lane
-utilization. This is also exactly how the reference lays out its ray
+Why: XLA lays out the trailing axis of an array contiguously, so (B, 3)
+vector math mixes components within vector registers and memory
+transactions. Keeping x/y/z as separate arrays — shaped (R, 128) in the
+renderer — makes every operation a dense elementwise pass over one
+component. This is also exactly how the reference lays out its ray
 streams: SoA, one array per component (src/render/driver.impala:24-61).
 
 All functions broadcast over arbitrary array shapes.

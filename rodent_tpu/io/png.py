@@ -1,8 +1,8 @@
 """Minimal dependency-free PNG reader/writer (zlib is in the stdlib).
 
 Plays the role of the reference's libpng wrapper (src/driver/image.cpp).
-Supports 8-bit RGB/RGBA/gray, which covers the golden images in
-/root/reference/testing and our own outputs.
+Supports 8-bit RGB/RGBA/gray, which covers the reference's golden
+images and our own outputs.
 """
 from __future__ import annotations
 

@@ -177,7 +177,7 @@ class RefTracer:
     bench_embree/bench_aila analog (tools/bench_embree/bench_embree.cpp):
     a second, fully independent implementation used to cross-check hit
     results and to anchor throughput claims with a measurement the code
-    under test did not produce. Shares no code with the TPU engines or
+    under test did not produce. Shares no code with the JAX engines or
     bvh_builder.cpp."""
 
     def __init__(self, vertices, indices4):

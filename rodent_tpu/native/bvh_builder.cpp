@@ -6,7 +6,7 @@
 //   quality=0: binned-SAH binary build (fast path for huge scenes /
 //     build-time-sensitive callers).
 // Both tiers build a fine binary tree and collapse it into N-wide nodes
-// with the slot-constrained DP (Ylitie et al. 2017) under a TPU pop-cost
+// with the slot-constrained DP (Ylitie et al. 2017) under a pop-cost
 // model — see dp_collapse_emit below.
 //
 // Both emit the node/packet encoding consumed by the traversal kernels:
@@ -346,11 +346,9 @@ void Builder::binary_to_dpn() {
 // under MAX_LEAF_PACKETS packets; subtree ranges are contiguous thanks
 // to left-first DFS layout. The numpy twin is
 // accel/builder.py::_collapse_wide_dp (oracle-tested vs brute force).
-// C_LEAF is the DEFAULT leaf-packet pop cost (heavier lane math,
-// measured on the VMEM-resident kernel); Builder::leaf_cost overrides it
-// per build: in tris_hbm mode a leaf pop also pays a ~1-2 us HBM DMA, so
-// big-scene builds want a higher ratio (fewer, tighter leaf packets —
-// the area-weighted packet count IS the expected DMA count per ray).
+// C_LEAF is the DEFAULT leaf-packet pop cost relative to a node pop
+// (heavier lane math); Builder::leaf_cost overrides it per build — a
+// higher ratio gives fewer, tighter leaf packets.
 constexpr float C_NODE = 1.0f;
 constexpr float C_LEAF = 1.2f;
 constexpr int MAX_LEAF_PACKETS = 8;

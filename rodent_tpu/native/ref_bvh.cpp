@@ -1,7 +1,7 @@
 // Independent reference traversal engine (bench_embree/bench_aila role,
 // SURVEY.md §2.3): a self-contained single-ray BVH2 — its own binned-SAH
 // builder and its own scalar stack traversal — deliberately sharing NO
-// code or data layout with bvh_builder.cpp or the TPU kernels. It exists
+// code or data layout with bvh_builder.cpp or the JAX engines. It exists
 // to give every throughput claim a second, independent measurement on
 // this host's CPU (the reference uses Embree and Aila's CUDA kernels for
 // the same purpose: tools/bench_embree/bench_embree.cpp,

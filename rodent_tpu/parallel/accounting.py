@@ -1,11 +1,9 @@
-"""Multi-chip cost accounting: per-shard work, padding waste, collective
-volume.
+"""Multi-device cost accounting: per-shard work, padding waste,
+collective volume.
 
 The reference has no distributed layer (SURVEY.md §2.5), so there is no
-counterpart to cite; this is the TPU-native component's own evidence
-surface (round-4 VERDICT item 6). Real multi-chip hardware is not
-available in this environment, but the quantities that determine scaling
-are computable without it:
+counterpart to cite. The quantities that determine scaling are
+computable without several cards:
 
 - per-shard *step counts*: the persistent wavefront loop's trip count is
   the whole per-device cost (every step is one traverse+shade+retire over
@@ -16,7 +14,7 @@ are computable without it:
 - *collective bytes*: the only collective in the render path is the psum
   of the (local, 3) f32 partial film over the sp axis (parallel.mesh);
   ray-sharded traversal needs none. Ring all-reduce moves
-  2*(n_sp-1)/n_sp * bytes per device per iteration over ICI.
+  2*(n_sp-1)/n_sp * bytes per device per iteration.
 """
 from __future__ import annotations
 
@@ -88,7 +86,7 @@ def hlo_cross_device_collectives(hlo_text):
 
 
 def measure_shard_steps(scene, camera, width, height, spp, n_px, n_sp=1,
-                        pool=None, packet=False, sort=False,
+                        pool=None, engine="tiled", sort=False,
                         retire_every=1):
     """Measured per-shard wavefront step counts.
 
@@ -112,7 +110,7 @@ def measure_shard_steps(scene, camera, width, height, spp, n_px, n_sp=1,
             film = jnp.zeros((local, 3), jnp.float32)
             _, st = render_iteration_persistent(
                 scene, camera, film, width, height, spp_local, 0,
-                pool=pool, packet=packet, sort=sort,
+                pool=pool, engine=engine, sort=sort,
                 retire_every=retire_every, pixel_lo=px * local,
                 n_pixels=local, sample_lo=sp * spp_local,
                 spp_weight=1.0 / spp, return_steps=True)

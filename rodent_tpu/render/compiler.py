@@ -2,7 +2,7 @@
 
 The reference converter (src/driver/converter.cpp:575-967) emits Impala
 source that is compiled with the renderer, baking shaders/lights/camera
-into code. The TPU analog compiles the same information into *static
+into code. Here the same information is compiled into *static
 data + jit-specialized config*: a material parameter table (the megakernel
 "simple material fusion" generalized to all kinds), a triangle-light table,
 and the BVH, all as device arrays; shader dispatch is data-driven masks
@@ -29,6 +29,8 @@ import jax.numpy as jnp
 from ..accel import build_bvh
 from ..io import obj as obj_io
 from ..traversal.api import bvh_to_device
+from ..traversal.dense import DENSE_MAX_PACKETS
+from ..traversal.engine import select_engine
 from . import bsdf as bsdf_mod
 from . import light as light_mod
 
@@ -505,51 +507,6 @@ def load_data_dir(data_dir):
                          tex_files=tex_files)
 
 
-def packet_ok(device, limit_bytes=80 * 1024 * 1024):
-    """True when the scene's BVH fits the VMEM budget of the Pallas packet
-    kernel (traversal.pallas_packet)."""
-    return (device["bvh"]["nodes"].size
-            + device["bvh"]["tris"].size) * 4 <= limit_bytes
-
-
-def packet_mode(device, limit_bytes=80 * 1024 * 1024):
-    """Auto-selects the renderer's traversal policy from the scene's
-    size: "dense" (a few Tri packets: brute-force them, no BVH walk —
-    pure XLA, valid on every backend), "hybrid" (whole BVH
-    VMEM-resident), "hybrid-hbm" (node table fits, Tri table DMA'd from
-    HBM — San-Miguel-class), or "hybrid-giga" (>12M-tri scenes: node
-    table exceeds VMEM too, both tables DMA'd per pop). The XLA
-    dual-queue path remains available explicitly (packet=False /
-    --traversal tiled)."""
-    from ..traversal.dense import DENSE_MAX_PACKETS
-    nodes_b = device["bvh"]["nodes"].size * 4
-    tris_b = device["bvh"]["tris"].size * 4
-    if device["bvh"]["tris"].shape[0] <= DENSE_MAX_PACKETS:
-        return "dense"
-    if nodes_b + tris_b <= limit_bytes:
-        return "hybrid"
-    if nodes_b <= limit_bytes:
-        return "hybrid-hbm"
-    return "hybrid-giga"
-
-
-def select_packet(device, limit_bytes=80 * 1024 * 1024):
-    """The production traversal policy for THIS backend: packet_mode's
-    tier, demoted to the XLA dual-queue (False) when the tier needs
-    Mosaic but the backend is not a TPU. "dense" is pure XLA and the
-    fastest small-scene engine on CPU hosts, but the Pallas packet
-    kernel beats it ~2x ON the chip (cornell persistent step: packet
-    10.7 vs dense 5.5 Msamples/s, results_tpu_r3.txt engine A/B), so a
-    TPU backend promotes dense scenes to the packet kernel. One helper
-    so the render/bench/view/gate tools cannot drift apart in how they
-    pick the engine."""
-    import jax
-    mode = packet_mode(device, limit_bytes=limit_bytes)
-    if jax.default_backend() != "tpu":
-        return "dense" if mode == "dense" else False
-    return True if mode == "dense" else mode
-
-
 def shell_coverage(device):
     """Fraction of the scene-bbox shell covered by geometry lying within
     2.5% of a shell face — a one-time host-side ENCLOSURE statistic.
@@ -560,8 +517,7 @@ def shell_coverage(device):
     (nothing escapes), so the persistent pool's live fraction stays
     high and a bigger pool amortizes per-step fixed cost; in open
     scenes most bounces escape, retirement dominates, and film-scatter
-    cost grows with pool width — the measured pool signs of round 4
-    (hall prefers 64K, crown 32K). Used by select_render_policy."""
+    cost grows with pool width. Used by select_render_policy."""
     v = np.asarray(device["vertices"])
     i4 = np.asarray(device["indices"])
     lo, hi = v.min(0), v.max(0)
@@ -580,54 +536,28 @@ def shell_coverage(device):
     return cover / 6.0
 
 
-def select_render_policy(device, limit_bytes=80 * 1024 * 1024):
-    """Measured per-distribution engine policy for the PERSISTENT
-    renderer: kwargs for render_iteration_persistent (round-4 A/B,
-    experiments/ab_render_policy.py, results_tpu_r4.txt).
+def select_render_policy(device, platform=None):
+    """kwargs for render_iteration_persistent on this backend (default:
+    jax.default_backend()).
 
-    - dense tier (<= 16 Tri packets, cornell-class): the packet kernel
-      wins the whole step on-chip (10.7 vs tiled 2.9 Msamples/s,
-      results_tpu_r3.txt) with deferred retirement; dense brute-force
-      off-chip.
-    - hybrid tier (BVH VMEM-resident, hall/crown-class): the mixed-depth
-      persistent pool diverges past what the shared-stack kernel
-      tolerates — ALL traversals (bounce AND NEE shadow) go to the
-      dual-queue loop with staged compaction, UNSORTED. Measured on
-      hall-260K 960x544 spp2 mpl20: all-packet 0.122 / shadow-on-packet
-      0.207 / all-tiled+compact5+pool-sort 0.521 / +sort=none 0.744
-      Msamples/s; the depth-0 packet peel adds nothing (0.506). The
-      shadow rays were the round-3 bottleneck: any-hit packet tiles pay
-      the same union tax as bounces. The knob sweep (results_tpu_r4
-      "all-tiled knob sweep") closed the rest: the pool sort costs more
-      than the coherence it buys a GATHER-based engine (+43% without
-      it), and deferred retirement only pays when the sort makes the
-      retirement block heavy (retire=2 wins under pool-sort, loses
-      under sort=none on both hall and crown). The POOL SIZE follows
-      the enclosure statistic (shell_coverage): enclosed interiors
-      keep paths alive (live fraction stays high), so a 64K pool
-      amortizes the per-step fixed cost (+5.3% on hall, round-4 pool
-      sweep); open scenes retire most bounces to the sky, so the
-      default 32K pool wins (crown: 64K loses) — the two measured
-      signs of round 4, now derived from the scene instead of
-      hardcoded per scene.
-    - hbm/giga tiers (San-Miguel-class): the Tri (and node) tables
-      exceed VMEM; the DMA packet kernel carries the traversal.
-
-    select_packet remains the single-call traversal policy (bench tools
-    that traverse one coherent distribution at a time)."""
-    import jax
-    mode = packet_mode(device, limit_bytes=limit_bytes)
-    tpu = jax.default_backend() == "tpu"
-    if mode == "dense":
-        if tpu:
-            return dict(packet=True, retire_every=2)
-        return dict(packet="dense", retire_every=2)
-    if mode == "hybrid" or not tpu:
-        pol = dict(packet=False, compact=5)
-        if shell_coverage(device) >= 0.5:
-            pol["pool"] = 1 << 16
-        return pol
-    return dict(packet=mode, sort="pool")
+    The traversal engine comes from traversal.engine.select_engine.
+    Cornell-class scenes (at most DENSE_MAX_PACKETS Tri packets) batch
+    retirement every second step: their traversal is so cheap that the
+    splat + regeneration block dominates the step (walk engine on the
+    H100, cornell 1080x720 spp 4: 190 vs 168 Msamples/s, PERF.md). The
+    tiled engine gets staged row compaction. Enclosed interiors
+    (shell_coverage >= 0.5) keep paths alive, so they get a 64K pool
+    that amortizes the per-step fixed cost over more live slots; open
+    scenes keep the default 32K pool."""
+    engine = select_engine(device["bvh"], platform)
+    pol = {"engine": engine}
+    if device["bvh"]["tris"].shape[0] <= DENSE_MAX_PACKETS:
+        pol["retire_every"] = 2
+    if engine == "tiled":
+        pol["compact"] = 5
+    if shell_coverage(device) >= 0.5:
+        pol["pool"] = 1 << 16
+    return pol
 
 
 def _mat_eq(a, b):

@@ -8,14 +8,14 @@ callbacks implement next-event estimation with MIS against BSDF sampling,
 specular skips, and clamped Russian roulette
 (make_path_tracing_renderer, src/render/renderer.impala:62-163).
 
-TPU mapping: one fixed-capacity megabatch of rays advances through a
+Device mapping: one fixed-capacity megabatch of rays advances through a
 jax.lax.while_loop over bounces; sort/compaction become masks (dead rays
 have empty traversal stacks and cost nothing inside the traversal loop),
 and the persistent variant regenerates dead slots with fresh samples (the
 megakernel work-counter trick, mapping_gpu.impala:371-474). All per-ray
-state lives in (R, 128) full-tile component layout (see core.vmath /
-traversal.tiled for why); vectors are (x, y, z) tuples — exactly the
-reference's SoA ray streams (driver.impala:24-61) in tile form.
+state lives in (R, 128) component layout (core.vmath); vectors are
+(x, y, z) tuples — exactly the reference's SoA ray streams
+(driver.impala:24-61) in tile form.
 
 The estimator matches renderer.impala term for term:
 - camera emitter seeds RNG with FNV(sample, iter, x, y) and jitters the
@@ -40,10 +40,8 @@ from ..core import vmath as vm
 from ..core.rng import randf, seed_camera_rays
 from ..core.tiles import (SELECT_CHAIN_ROWS, gather_cols,
                           gather_cols_select, num_tiles, tile)
-from ..utils.compile import rjit
-from ..traversal.pallas_packet import traverse_packet_components
+from ..traversal.engine import components_fn
 from ..traversal.sorting import ray_sort_keys
-from ..traversal.tiled import traverse_components
 from . import bsdf as bsdf_mod
 from . import light as light_mod
 
@@ -65,49 +63,19 @@ def make_rays_c(org, dirv, tmin, tmax):
             "tmin": tmin, "tmax": tmax}
 
 
-def _traverse(scene, rays, any_hit=False, packet=False, sort=False,
+def _traverse(scene, rays, any_hit=False, engine="tiled", sort=False,
               compact=0, sub=0):
-    """packet=True uses the Pallas shared-stack kernel (BVH must fit in
-    VMEM); packet="hbm" uses its big-scene mode (node table in VMEM,
-    Tri rows DMA'd from HBM — San-Miguel-class scenes); default is the
-    pure-XLA dual-queue loop.
-
-    The packet kernel is 10-20x faster on coherent distributions but
-    craters on incoherent ones (tile unions explode — measured 36.8 vs
-    1.8 Mrays/s on hall-260K primary/bounce); the dual-queue loop is
-    per-ray independent and degrades gracefully. The renderer's
-    packet="hybrid" policy in render_sample peels the coherent depth-0
-    work onto the packet kernel and keeps bounces here — the reference's
-    hybrid kernel switch (mapping_cpu.impala:267-324) at wavefront
-    granularity.
+    """Traces a component-layout ray bundle through the named engine
+    (traversal.engine: "tiled", "dense", "walk", "walk-interpret").
+    compact and sub tune the tiled engine only: staged row compaction
+    (pays when rays are cone-sorted so rows die together) and sequential
+    sub-batches.
 
     sort=True re-sorts the wavefront before traversal (org9|oct|dir20
     key, dead rays to the tail) and scatters hits back to slot order —
     the reference re-sorts its stream every bounce
-    (mapping_cpu.impala:35-91, mapping_gpu.impala:166-221). Essential
-    for the packet kernel on mixed-depth persistent pools, whose slot
-    order is pixel-scrambled by regeneration.
-
-    packet="dense" brute-forces every Tri packet as straight-line
-    full-tile VPU ops (traversal.dense) — the cornell-class small-scene
-    fast path; order-insensitive, so sort is skipped."""
-    if packet == "dense":
-        from ..traversal.dense import traverse_dense_components
-        return traverse_dense_components(
-            scene["bvh"], rays["org"], rays["dir"], rays["inv_dir"],
-            rays["inv_org"], rays["tmin"], rays["tmax"], any_hit=any_hit)
-    if packet:
-        fn = partial(traverse_packet_components,
-                     tris_hbm=(packet in ("hbm", "giga")),
-                     nodes_hbm=(packet == "giga"))
-    else:
-        # compact: staged row compaction (tiled.py) — pays when rays are
-        # cone-sorted so rows die together; meaningless for the packet
-        # kernel (its tiles already retire independently). sub: sequential
-        # sub-batches bound the lockstep tail per chunk (pays under sort,
-        # which gives chunks trip-count neighborhoods)
-        fn = partial(traverse_components, compact_stages=compact,
-                     sub_batches=sub)
+    (mapping_cpu.impala:35-91, mapping_gpu.impala:166-221)."""
+    fn = components_fn(engine, compact=compact, sub=sub)
     if sort and "scene_lo" in scene:
         shape = rays["tmin"].shape
         flat3 = tuple(x.reshape(-1) for x in rays["org"])
@@ -283,35 +251,22 @@ def _splat(film, pixel, color, mask):
 
 def _splat_planar(planes, pixel, color, mask):
     """_splat against a component-planar film (3 x (N,) arrays): three 1D
-    scatter-adds instead of one (B, 3) row scatter — measured v5e: 1D
-    scatter-add is 4.9 ns/elem while row scatters cost ~98.6 ns/row, and
-    the persistent loop pays one full-pool splat per step. Sums per
-    component are in the same index order, so films stay bit-identical to
-    the row form."""
+    scatter-adds instead of one (B, 3) row scatter. Sums per component
+    are in the same index order, so films stay bit-identical to the row
+    form."""
     r = pixel.shape[0]
     idx = jnp.where(mask, pixel, planes[0].shape[0]).reshape(r * 128)
     return tuple(p.at[idx].add(c.reshape(r * 128), mode="drop")
                  for p, c in zip(planes, color))
 
 
-def _shade(scene, rays, hit, state, packet=False, sort=False,
-           compact=0, shadow_packet=None, shadow_compact=None, sub=0):
+def _shade(scene, rays, hit, state, engine="tiled", sort=False,
+           compact=0, sub=0):
     """One shading stage: on_hit accumulation, NEE shadow rays, bounce
     sampling. Radiance accumulates into the per-slot register state["acc"]
-    (splatted to the film only when the path retires — film scatter-adds
-    measured ~13 ms each on v5e, so per-bounce splats dominated the whole
-    renderer). Returns (next_rays, next_state).
-
-    shadow_packet/shadow_compact override the traversal engine for the
-    NEE shadow rays only (the persistent renderer's per-distribution
-    policy — the reference's hybrid kernel switch,
-    mapping_cpu.impala:267-324, at wavefront granularity): shadow rays
-    converge on the lights, so they stay coherent even when the pool's
-    bounce rays have diverged."""
-    if shadow_packet is None:
-        shadow_packet = packet
-    if shadow_compact is None:
-        shadow_compact = compact
+    and is splatted to the film only when the path retires (one
+    scatter-add per path instead of one per bounce). Returns
+    (next_rays, next_state)."""
     alive = state["alive"] & (hit["prim_id"] >= 0)
     surf = surface_element(scene, rays, hit)
     mat = gather_material(scene, surf["mat_id"])
@@ -379,8 +334,8 @@ def _shade(scene, rays, hit, state, packet=False, sort=False,
     shadow_rays = make_rays_c(surf["point"], light_vec, off,
                               jnp.where(nee_ok, 1.0 - OFFSET, -1.0))
     shadow_hit = _traverse(scene, shadow_rays, any_hit=True,
-                           packet=shadow_packet, sort=sort,
-                           compact=shadow_compact, sub=sub)
+                           engine=engine, sort=sort, compact=compact,
+                           sub=sub)
     add_shadow = nee_ok & (shadow_hit["prim_id"] < 0)
     acc = vm.add(acc, vm.where(add_shadow, shadow_color, zero3))
 
@@ -430,19 +385,11 @@ def _emit_camera(camera, width, height, sample, iteration, pix):
 
 
 def render_sample(scene, camera, film, width, height, sample, iteration,
-                  pixel_ids=None, packet=False, sort=False):
+                  pixel_ids=None, engine="tiled", sort=False):
     """Traces one sample per pixel to completion (one wavefront pass).
     pixel_ids indexes the *global* image; when film is a local shard of
-    the same length, scatters use local indices (parallel.mesh).
-
-    packet: False = XLA dual-queue for every traversal; True = Pallas
-    packet kernel for every traversal (small scenes, BVH in VMEM);
-    "hbm" = packet kernel in big-scene mode for every traversal (node
-    table in VMEM, Tri rows DMA'd from HBM); "hybrid"/"hybrid-hbm" =
-    packet kernel for the coherent depth-0 camera + shadow
-    rays (peeled out of the loop), dual-queue for bounce depths — the
-    per-distribution kernel switch the reference's hybrid mode makes
-    per packet (mapping_cpu.impala:267-324)."""
+    the same length, scatters use local indices (parallel.mesh). engine
+    names the traversal engine of every trace (traversal.engine)."""
     # "pool" (stateful pool reorder) only exists in the persistent loop;
     # here it degrades to the per-call re-sort
     sort = sort in (True, "pool")
@@ -474,20 +421,10 @@ def render_sample(scene, camera, film, width, height, sample, iteration,
     def cond(c):
         return jnp.any(c["state"]["alive"])
 
-    loop_packet = packet if packet in (True, "hbm", "giga",
-                                       "dense") else False
-    if packet in ("hybrid", "hybrid-hbm", "hybrid-giga"):
-        # peel the coherent depth-0 iteration onto the packet kernel
-        # (big-scene flavor when the Tri table exceeds VMEM)
-        peel = {"hybrid": True, "hybrid-hbm": "hbm",
-                "hybrid-giga": "giga"}[packet]
-        hit = _traverse(scene, rays, packet=peel)
-        rays, state = _shade(scene, rays, hit, state, packet=peel)
-
     def body(c):
         rays, state = c["rays"], c["state"]
-        hit = _traverse(scene, rays, packet=loop_packet, sort=sort)
-        rays, state = _shade(scene, rays, hit, state, packet=loop_packet,
+        hit = _traverse(scene, rays, engine=engine, sort=sort)
+        rays, state = _shade(scene, rays, hit, state, engine=engine,
                              sort=sort)
         return {"rays": rays, "state": state}
 
@@ -500,10 +437,10 @@ def render_sample(scene, camera, film, width, height, sample, iteration,
     return _splat(film, film_index, acc, live)
 
 
-@partial(rjit, static_argnames=("camera", "width", "height", "packet"),
+@partial(jax.jit, static_argnames=("camera", "width", "height", "engine"),
          donate_argnames=("film",))
 def render_debug(scene, camera, film, width, height, iteration,
-                 packet=False):
+                 engine="tiled"):
     """Eye-light debug renderer (make_debug_renderer,
     renderer.impala:42-60): one camera pass, no NEE/bounces, accumulates
     white * -dot(ray.dir, shading normal). spp is fixed at 1 as in the
@@ -515,7 +452,7 @@ def render_debug(scene, camera, film, width, height, iteration,
     org, d, _rnd = _emit_camera(camera, width, height, 0, iteration, pix)
     rays = make_rays_c(org, d, jnp.zeros((r, 128), jnp.float32),
                        jnp.where(live, FLT_MAX, -1.0))
-    hit = _traverse(scene, rays, packet=packet)
+    hit = _traverse(scene, rays, engine=engine)
     surf = surface_element(scene, rays, hit)
     shade = jnp.maximum(-vm.dot(rays["dir"], surf["n"]), 0.0)
     shade = jnp.where(live & (hit["prim_id"] >= 0), shade, 0.0)
@@ -526,11 +463,11 @@ def render_debug(scene, camera, film, width, height, iteration,
     return _splat(film, pix, color, live)
 
 
-@partial(rjit, static_argnames=("camera", "width", "height", "spp",
-                                   "packet", "sort"),
+@partial(jax.jit, static_argnames=("camera", "width", "height", "spp",
+                                   "engine", "sort"),
          donate_argnames=("film",))
 def render_iteration(scene, camera, film, width, height, spp, iteration,
-                     packet=False, sort=False):
+                     engine="tiled", sort=False):
     """One progressive iteration: spp wavefront passes accumulated into the
     film, weighted 1/spp so the film holds per-iteration means and the
     tonemapper divides by the iteration count alone, exactly like the
@@ -538,26 +475,23 @@ def render_iteration(scene, camera, film, width, height, spp, iteration,
     driver.cpp:145-162)."""
     def body(s, acc):
         return render_sample(scene, camera, acc, width, height, s,
-                             iteration, packet=packet, sort=sort)
+                             iteration, engine=engine, sort=sort)
     delta = jax.lax.fori_loop(0, spp, body, jnp.zeros_like(film))
     return film + delta * (1.0 / spp)
 
 
-@partial(rjit, static_argnames=("camera", "width", "height", "spp",
-                                   "pool", "packet", "n_pixels", "sort",
+@partial(jax.jit, static_argnames=("camera", "width", "height", "spp",
+                                   "pool", "engine", "n_pixels", "sort",
                                    "compact", "sub", "retire_every",
-                                   "bounce_packet", "shadow_packet",
-                                   "depth_split", "return_steps"),
+                                   "return_steps"),
          donate_argnames=("film",))
 def render_iteration_persistent(scene, camera, film, width, height, spp,
-                                iteration, pool=None, packet=False,
+                                iteration, pool=None, engine="tiled",
                                 pixel_lo=0, n_pixels=None, sample_lo=0,
                                 spp_weight=None, sort=False, compact=0,
-                                sub=0, retire_every=1, bounce_packet=None,
-                                shadow_packet=None, depth_split=False,
-                                return_steps=False):
-    """Persistent-wavefront iteration: the TPU form of the reference's
-    megakernel regeneration trick (gpu_mega_kernel_trace,
+                                sub=0, retire_every=1, return_steps=False):
+    """Persistent-wavefront iteration: the reference's megakernel
+    regeneration trick (gpu_mega_kernel_trace,
     src/render/mapping_gpu.impala:371-474 — dead paths immediately pull
     the next sample id from a work counter so lanes never idle).
 
@@ -566,6 +500,10 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     for the next unprocessed sample. RNG seeds depend only on
     (sample, iter, x, y) (renderer.impala:27-33), so the film is
     bit-identical to render_iteration's.
+
+    engine names the traversal engine of the bounce and the NEE shadow
+    traces (traversal.engine; compiler.select_render_policy picks it
+    with the rest of the policy).
 
     Sharding hooks (parallel.mesh render_iteration_persistent_sharded):
     pixel_lo/n_pixels restrict the pass to a contiguous pixel strip
@@ -583,9 +521,7 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     whenever NO slot is alive, so progress is guaranteed). Films are
     bit-identical for any K: samples are keyed by id, not by which slot
     or step serves them. Trade: ~1/K of the retirement cost against a
-    utilization loss of roughly death_rate * (K-1)/2 — profitable when
-    the splat/regen block dominates the step (measure with
-    experiments/profile_renderer.py).
+    utilization loss of roughly death_rate * (K-1)/2.
 
     sort="pool" reorders the POOL ITSELF at each retirement (org9|oct|
     dir20 keys of the post-regen rays, dead slots to the tail) instead
@@ -593,57 +529,19 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     (sort=True): one argsort + ~20 array permutations per retirement
     replaces two argsorts + 11 permutes + 5 hit scatters per step, and
     BOTH the bounce and the NEE shadow traversals then see coherent
-    tiles for free. Slot identity carries the sample, so films are
-    bit-identical to sort=False/True.
+    tiles. Slot identity carries the sample, so films are bit-identical
+    to sort=False/True.
 
-    Per-distribution engine routing (round 4, VERDICT item 1 — the
-    reference's hybrid kernel switch applied to the persistent pool):
-    - bounce_packet (default None = packet): engine for the pool's main
-      traversal. Set to False (+ compact) to run the mixed-depth bounce
-      rays on the per-ray-independent dual-queue loop while shadow rays
-      stay on the packet kernel.
-    - shadow_packet (default None = packet): engine for the NEE shadow
-      traversal. Shadow rays converge on the lights and stay coherent,
-      so the packet kernel keeps winning them after bounces diverge.
-    - depth_split=True additionally peels depth-0 camera rays out of the
-      main traversal onto the `packet` engine (two masked traversals per
-      step, merged by depth; the pool-sort key gets a depth-0 MSB so
-      each engine sees its rays as contiguous tiles and the other
-      engine's tiles retire dead). Films are bit-identical across
-      policies: the BVH engines are exact-parity and routing changes
-      which kernel serves a ray, never the estimator.
-    - sub=k routes the dual-queue traversals through k sequential
-      sub-batches (traverse_components sub_batches): each chunk pays
-      its own lockstep max-trips. On the hall MEGABATCH rows this
-      loses with honest timing (probe_sb_depth.py — sorted chunks
-      share the global max-trips); exposed here because a mixed-depth
-      pool under sort="pool" has real trip skew (depth-0 tiles retire
-      in ~7 trips, deep bounces in ~36) — measure per scene with
-      experiments/ab_render_policy.py before enabling.
+    sub=k routes the tiled engine's traversals through k sequential
+    sub-batches (traverse_components sub_batches): each chunk pays its
+    own lockstep max-trips.
     """
-    # the hybrid policies are wavefront-level (depth-0 peel) and don't
-    # apply to a mixed-depth pool; map them to their full-packet flavor
-    # ("hybrid-hbm" MUST keep the Tri-DMA mode — its Tri table exceeds
-    # VMEM)
-    packet = {"hybrid": True, "hybrid-hbm": "hbm",
-              "hybrid-giga": "giga"}.get(packet, packet)
-    if bounce_packet is None:
-        bounce_packet = packet
-    if shadow_packet is None:
-        shadow_packet = packet
-    # depth_split with identical engines is just the plain call twice
-    depth_split = depth_split and bounce_packet != packet
     n_pixels = n_pixels or width * height
     total = n_pixels * spp
     weight = spp_weight if spp_weight is not None else (1.0 / spp)
     local_film = film.shape[0] == n_pixels
-    # pool sweep (cornell 1080x720x4spp, v5e, Msamples/s): 8K 5.9 |
-    # 16K 6.3 | **32K 6.3** | 64K 6.0 | 128K 5.2 | 256K 3.8 | 512K 2.6 |
-    # 1M 1.5 | pool=total 0.6. Small pools win: per-step cost grows
-    # super-linearly with pool width (film scatter + HBM state traffic)
-    # while the step count shrinks sub-linearly; the regeneration keeps
-    # even a 32K pool fully live. Films are bit-identical across pool
-    # sizes (RNG seeds depend only on sample/iter/pixel).
+    # films are bit-identical across pool sizes (RNG seeds depend only on
+    # sample/iter/pixel); the pool trades per-step width for step count
     pool = pool or min(total, 1 << 15)
     r = num_tiles(pool)
 
@@ -742,13 +640,6 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
                 tuple(x.reshape(-1) for x in rays["org"]),
                 tuple(x.reshape(-1) for x in rays["dir"]),
                 scene["scene_lo"], scene["scene_hi"])
-            if depth_split:
-                # depth-0 camera rays sort before bounce rays so each
-                # engine of the split traversal sees its class as
-                # contiguous tiles (key>>1 keeps cone order inside each)
-                keys = (keys >> 1) | jnp.where(
-                    (state["depth"] == 0).reshape(-1), jnp.uint32(0),
-                    jnp.uint32(0x80000000))
             keys = jnp.where(state["alive"].reshape(-1), keys,
                              jnp.uint32(0xFFFFFFFF))
             perm = jnp.argsort(keys)
@@ -776,26 +667,10 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     def body(c):
         rays, state, film = c["rays"], c["state"], c["film"]
         next_free = c["next_free"]
-        if depth_split:
-            # two masked traversals merged by depth: depth-0 camera rays
-            # on `packet`, bounce depths on `bounce_packet`. Masked-off
-            # rays are dead (tmax = -1): the packet kernel retires dead
-            # tiles in ~1 pop and the dual-queue skips dead rays, so the
-            # overlap cost is near zero once the pool-sort groups each
-            # class into its own tiles.
-            d0 = state["depth"] == 0
-            r0 = dict(rays, tmax=jnp.where(d0, rays["tmax"], -1.0))
-            rb = dict(rays, tmax=jnp.where(d0, -1.0, rays["tmax"]))
-            h0 = _traverse(scene, r0, packet=packet, sort=call_sort)
-            hb = _traverse(scene, rb, packet=bounce_packet,
-                           sort=call_sort, compact=compact, sub=sub)
-            hit = {k: jnp.where(d0, h0[k], hb[k]) for k in h0}
-        else:
-            hit = _traverse(scene, rays, packet=bounce_packet,
-                            sort=call_sort, compact=compact, sub=sub)
-        rays, state = _shade(scene, rays, hit, state, packet=packet,
-                             sort=call_sort, compact=compact,
-                             shadow_packet=shadow_packet, sub=sub)
+        hit = _traverse(scene, rays, engine=engine, sort=call_sort,
+                        compact=compact, sub=sub)
+        rays, state = _shade(scene, rays, hit, state, engine=engine,
+                             sort=call_sort, compact=compact, sub=sub)
 
         step = c["step"]
         if retire_every == 1:

@@ -6,8 +6,8 @@ Role twin of tools/bench_embree/bench_embree.cpp and tools/bench_aila
 not write). Embree and CUDA do not exist here; the analog is
 native/ref_bvh.cpp — a self-contained single-ray BVH2 with its own
 binned-SAH builder and scalar stack traversal, sharing no code with the
-TPU engines or the production BVH builder. Every throughput row in
-benchmarks/ can therefore be anchored against a measurement the code
+JAX engines or the production BVH builder. Every throughput row of the
+benchmarks can therefore be anchored against a measurement the code
 under test did not produce, and every hit result cross-checked against
 an implementation that was never derived from it.
 
@@ -17,7 +17,7 @@ Single-threaded, timed inside the C engine.
 
 CLI mirrors bench_embree (obj/ray/tmin/tmax/bench/warmup/any/output);
 --scene/--dist generate the procedural fixtures + distributions that
-bench.py and benchmarks/results_tpu_r*.txt use, for like-for-like rows.
+bench.py and tools/benchmark use, for like-for-like rows.
 
 Usage:
   python -m rodent_tpu.tools.bench_ref -obj scene.obj -ray cam.rays
@@ -106,7 +106,7 @@ def main(argv=None):
     if args.obj and not args.ray:
         p.error("-obj mode needs a -ray file (bench_embree takes both); "
                 "--scene generates its own distributions")
-    # the TPU rows this tool anchors always run ao as any-hit occlusion
+    # the rows this tool anchors always run ao as any-hit occlusion
     # (bench.py, tools/benchmark.py); imply it so the default anchor is
     # like-for-like. --closest restores a closest-hit ao measurement.
     if args.dist == "ao" and not args.closest:

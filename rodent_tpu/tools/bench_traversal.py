@@ -9,7 +9,7 @@ and optionally dumps hit distances as .fbuf.
 Usage:
   python -m rodent_tpu.tools.bench_traversal -bvh scene.bvh -ray cam.rays
       [--tmin T] [--tmax T] [-any] [--bench N] [--warmup N] [-o out.fbuf]
-      [--bvh-width 8] [--cpu]
+      [--bvh-width 8] [--engine auto] [--cpu]
 """
 from __future__ import annotations
 
@@ -18,8 +18,6 @@ import sys
 import time
 
 import numpy as np
-
-from ..utils.compile import rjit
 
 
 def main(argv=None):
@@ -41,18 +39,17 @@ def main(argv=None):
                    help="octant+Morton ray reordering before traversal "
                         "(helps incoherent distributions)")
     p.add_argument("--cpu", action="store_true", help="force CPU backend")
-    p.add_argument("--variant", choices=("tiled", "tiled-c", "packet",
-                                         "hbm", "giga"),
-                   default="tiled",
-                   help="traversal engine: tiled (XLA dual-queue, any "
-                        "scene size; tiled-c adds staged row "
-                        "compaction), packet (Pallas shared-stack, BVH "
-                        "in VMEM; pair with --sort), hbm (Tri table in "
-                        "HBM), or giga (node + Tri tables in HBM — no "
-                        "VMEM scene-size ceiling)")
+    p.add_argument("--engine", choices=("auto", "tiled", "tiled-c",
+                                        "dense", "walk"),
+                   default="auto",
+                   help="traversal engine (traversal.engine): auto picks "
+                        "the production engine for this backend; tiled "
+                        "is the XLA lockstep loop (tiled-c adds staged "
+                        "row compaction), dense brute-forces small "
+                        "scenes, walk is the per-ray GPU kernel")
     p.add_argument("--sharded", action="store_true",
                    help="scene-replicated, ray-sharded traversal over "
-                        "all devices (SURVEY §2.5 multi-chip config)")
+                        "all devices (SURVEY §2.5 multi-device config)")
     args = p.parse_args(argv)
 
     import jax
@@ -62,14 +59,17 @@ def main(argv=None):
     from ..accel.layout import WideBvh
     from ..io import formats
     from ..traversal.api import bvh_to_device, make_rays
-    from ..traversal.pallas_packet import traverse_packet
-    from ..traversal.tiled import traverse_tiled
+    from ..traversal.engine import select_engine, traverse
 
     btype = {2: formats.BVH2_TRI1, 4: formats.BVH4_TRI4,
              8: formats.BVH8_TRI4}.get(args.bvh_width)
     block = formats.read_bvh(args.bvh, btype)
     bvh = WideBvh.from_block(block)
     dev = bvh_to_device(bvh)
+    engine = (select_engine(dev) if args.engine == "auto"
+              else args.engine.removesuffix("-c"))
+    compact = 5 if args.engine == "tiled-c" else 0
+    kw = {"compact": compact} if compact else {}
 
     r = formats.read_rays(args.ray, tmin=args.tmin, tmax=args.tmax)
     n = len(r["org"])
@@ -99,17 +99,11 @@ def main(argv=None):
                 [v, jnp.full((pad,) + v.shape[1:],
                              -1.0 if k == "tmax" else 0.0, v.dtype)])
                 for k, v in rays.items()}
-        fn = rjit(lambda rr: traverse_sharded(dev, rr, mesh=mesh,
-                                                 any_hit=args.any))
-    elif args.variant in ("packet", "hbm", "giga"):
-        fn = rjit(lambda rr: traverse_packet(
-            dev, rr, any_hit=args.any,
-            tris_hbm=args.variant in ("hbm", "giga"),
-            nodes_hbm=args.variant == "giga"))
+        fn = jax.jit(lambda rr: traverse_sharded(
+            dev, rr, mesh=mesh, any_hit=args.any, engine=engine, **kw))
     else:
-        fn = rjit(lambda rr: traverse_tiled(
-            dev, rr, any_hit=args.any,
-            compact_stages=5 if args.variant == "tiled-c" else 0))
+        fn = jax.jit(lambda rr: traverse(dev, rr, engine,
+                                         any_hit=args.any, **kw))
     hit = None
     for _ in range(max(args.warmup, 1)):
         hit = fn(rays)

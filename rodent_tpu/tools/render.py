@@ -37,9 +37,6 @@ def main(argv=None):
     p.add_argument("--debug", action="store_true",
                    help="eye-light debug renderer (make_debug_renderer, "
                         "renderer.impala:42-60): no NEE/bounces, spp 1")
-    p.add_argument("--no-packet", action="store_true",
-                   help="disable the Pallas packet traversal (used by "
-                        "default when the BVH fits in VMEM)")
     p.add_argument("--progressive", action="store_true",
                    help="full-width progressive wavefront instead of the "
                         "persistent 32K regeneration pool (films are "
@@ -47,9 +44,9 @@ def main(argv=None):
     p.add_argument("--profile", action="store_true",
                    help="per-stage wall-time report at exit (the "
                         "reference's cpu_profile percentages, "
-                        "mapping_cpu.impala:453-472; on TPU one "
-                        "iteration is a single fused program, so the "
-                        "stages are compile/render/tonemap/io)")
+                        "mapping_cpu.impala:453-472; one iteration is "
+                        "a single fused program, so the stages are "
+                        "compile/render/tonemap/io)")
     p.add_argument("--sort", choices=("auto", "on", "off", "pool"),
                    default="auto",
                    help="re-sort the wavefront every bounce before "
@@ -57,16 +54,13 @@ def main(argv=None):
                         "sort_rays, mapping_cpu.impala:409): +32%% on "
                         "hall-class scenes, films bit-identical; auto "
                         "enables it for non-trivial scenes (>16K tris)")
-    p.add_argument("--traversal", choices=("auto", "tiled", "packet",
-                                           "dense",
-                                           "hybrid", "hybrid-hbm",
-                                           "hybrid-giga"),
+    p.add_argument("--traversal", choices=("auto", "tiled", "dense",
+                                           "walk"),
                    default="auto",
-                   help="kernel policy: packet for everything, tiled "
-                        "(XLA dual-queue) for everything, or hybrid "
-                        "(packet for depth-0 camera+shadow rays, tiled "
-                        "for bounces); auto picks hybrid when the BVH "
-                        "fits in VMEM on a TPU backend")
+                   help="traversal engine (traversal.engine): auto takes "
+                        "the measured render policy for this backend "
+                        "(compiler.select_render_policy); tiled, dense "
+                        "or walk force one engine")
     args = p.parse_args(argv)
 
     import jax
@@ -74,26 +68,20 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     from ..render import film as film_mod
     from ..render.camera import Camera
-    from ..render.compiler import (compile_obj, select_packet,
-                                   select_render_policy)
+    from ..render.compiler import compile_obj, select_render_policy
     from ..render.integrator import render_iteration
     from ..io import png
 
     scene = compile_obj(args.scene, max_path_len=args.max_path_len)
-    # the persistent paths take the full measured policy (engines +
-    # compaction + sort + retirement) under --traversal auto; explicit
-    # flags and the progressive/debug paths keep the single-engine knob
+    # the persistent paths take the full measured policy (engine +
+    # compaction + pool + retirement) under --traversal auto; explicit
+    # engines and the progressive/debug paths take the engine alone
     policy = None
     if args.traversal == "auto":
-        if args.no_packet:
-            packet = False
-        else:
-            policy = dict(select_render_policy(scene.device))
-            packet = select_packet(scene.device)
+        policy = dict(select_render_policy(scene.device))
+        engine = policy["engine"]
     else:
-        packet = {"tiled": False, "packet": True, "dense": "dense",
-                  "hybrid": "hybrid", "hybrid-hbm": "hybrid-hbm",
-                  "hybrid-giga": "hybrid-giga"}[args.traversal]
+        engine = args.traversal
     num_tris = scene.device["tri_geo"].shape[0]
     sort = ("pool" if args.sort == "pool" else
             (args.sort == "on"
@@ -109,7 +97,7 @@ def main(argv=None):
         args.spp = 1
         step = lambda f, i: render_debug(
             scene.device, cam, f, args.width, args.height, i,
-            packet=(packet is True))
+            engine=engine)
     elif args.sharded:
         from ..parallel import (make_mesh, render_iteration_sharded,
                                 render_iteration_persistent_sharded)
@@ -117,24 +105,24 @@ def main(argv=None):
         if args.progressive:
             step = lambda f, i: render_iteration_sharded(
                 scene.device, cam, f, args.width, args.height, args.spp, i,
-                mesh, packet=packet, sort=sort)
+                mesh, engine=engine, sort=sort)
         else:
             kw = (policy if policy is not None
-                  else dict(packet=packet, sort=sort))
+                  else dict(engine=engine, sort=sort))
             step = lambda f, i: render_iteration_persistent_sharded(
                 scene.device, cam, f, args.width, args.height, args.spp, i,
                 mesh, **kw)
     elif args.progressive:
         step = lambda f, i: render_iteration(
             scene.device, cam, f, args.width, args.height, args.spp, i,
-            packet=packet, sort=sort)
+            engine=engine, sort=sort)
     else:
         # persistent regeneration pool: same film bit-for-bit (RNG seeds
         # depend only on sample/iter/pixel), ~4x the progressive
         # throughput (mapping_gpu.impala:371-474's megakernel trick)
         from ..render.integrator import render_iteration_persistent
         kw = (policy if policy is not None
-              else dict(packet=packet, sort=sort))
+              else dict(engine=engine, sort=sort))
         step = lambda f, i: render_iteration_persistent(
             scene.device, cam, f, args.width, args.height, args.spp, i,
             **kw)

@@ -1,11 +1,10 @@
-"""BVH traversal over ray megabatches — the TPU replacement for the
-reference's single/packet/hybrid kernels.
+"""BVH traversal over ray megabatches — the readable reference engine and
+oracle, and the device table layout every engine shares.
 
 Design (vs src/traversal/mapping_cpu.impala:138-384): rodent specializes
 three SIMD mappings (single ray over child slots / ray packet over lanes /
-hybrid switch). On TPU there is no per-lane divergence to manage inside a
-warp — the natural mapping is one *megabatch* of rays advanced in lockstep
-by a jax.lax.while_loop: every iteration, each live ray pops one entry off
+hybrid switch). In plain jnp the natural mapping is one *megabatch* of
+rays advanced in lockstep by a jax.lax.while_loop: every iteration, each live ray pops one entry off
 its traversal stack and processes either one wide node (slab tests across
 the N child slots, vectorized over the batch) or one Tri4 packet. Rays
 idle once their stack empties; the loop ends when all stacks are empty.
@@ -13,17 +12,14 @@ Child ordering uses a small sort by entry distance — the data-parallel
 equivalent of the reference's sorting-network stack sort
 (src/traversal/stack.impala:59-123).
 
-TPU layout rule (measured on v5e): XLA gathers of FLAT rows (B,) x (N, R)
-run at HBM speed (~0.03 ms for 64K x 256B), while gathers with a
-multi-dim trailing shape like (N, 6, 8) or (N, 4, 3) are ~150x slower
-(4-6 ms). So nodes and triangle packets are packed into single flat
-64-float rows (children bitcast into float lanes) and every per-ray fetch
-is ONE flat gather followed by cheap slices:
+Table layout: nodes and triangle packets are packed into single flat
+float rows (children bitcast into float lanes), so every per-ray fetch
+is ONE flat row gather followed by cheap slices:
 
-  node row  (arity 8): [xmin*8 | xmax*8 | ymin*8 | ymax*8 | zmin*8 |
-                        zmax*8 | child*8 (i32 bitcast) | pad*8]
-  tri row   (Tri4):    [v0x*4 | v0y*4 | v0z*4 | e1x..e1z*4 | e2x..e2z*4 |
-                        nx..nz*4 | prim*4 (i32) | geom*4 (i32) | pad*8]
+  node row  (arity A): [xmin*A | xmax*A | ymin*A | ymax*A | zmin*A |
+                        zmax*A | child*A (i32 bitcast)]
+  tri row   (TriM):    [v0x*M | v0y*M | v0z*M | e1x..e1z*M | e2x..e2z*M |
+                        nx..nz*M | prim*M (i32) | geom*M (i32)]
 
 The same function doubles as the "pure-XLA reference traversal" oracle
 (SURVEY.md §4: the Embree-device role) — a brute-force all-triangles
@@ -40,7 +36,7 @@ import numpy as np
 from .primitives import empty_hit, make_rays
 
 # The reference uses a 64-deep stack (src/traversal/stack.impala:53); for
-# the batched TPU loop every stack column costs a (B, S) buffer pass per
+# the batched loop every stack column costs a (B, S) buffer pass per
 # push, so we default to 32. The actual stack size is chosen per-BVH from
 # the tree's worst-case requirement (BvhMeta, computed host-side in
 # bvh_to_device), so overflow cannot occur; STACK_DEPTH is only the
@@ -61,7 +57,7 @@ class BvhMeta:
     removes that failure mode at zero runtime cost.
 
     shared_stack: worst-case entries for a single mixed node/leaf stack
-        (api.traverse, pallas_packet) assuming every child of every popped
+        (api.traverse, walk.py) assuming every child of every popped
         node is pushed and pop order is adversarial.
     node_stack: same for a node-only stack (tiled.py's dual-queue form,
         where leaf refs live on a separately-guarded stack).
@@ -260,9 +256,8 @@ _SORT_NETWORKS = {
 
 def _sort_by_key(keys, payloads, arity):
     """Sorts `arity` (B,) key columns ascending, permuting payload column
-    lists the same way. All ops are elementwise selects (VPU-friendly;
-    measured ~100x faster than jnp.argsort+take_along_axis composed inside
-    the traversal body on TPU)."""
+    lists the same way. All ops are elementwise selects, which fuse into
+    the traversal body (jnp.argsort + take_along_axis would not)."""
     keys = list(keys)
     payloads = [list(p) for p in payloads]
     for i, j in _SORT_NETWORKS[arity]:
@@ -283,11 +278,9 @@ def traverse(dev, rays, any_hit=False, stack_depth=None):
     Returns hit dict {t, u, v, prim_id, geom_id} — prim_id == -1 on miss,
     t == original tmax on miss (empty_hit semantics).
 
-    The loop body is engineered for TPU: two flat row gathers (node, tri
-    packet) and otherwise pure elementwise ops — stack pop/push via
-    one-hot masks over a (B, S) stack, child ordering via a static
-    sorting network. jnp.argsort / scatter / take_along_axis compose
-    ~100x slower here (measured on v5e)."""
+    The loop body is two flat row gathers (node, tri packet) and
+    otherwise pure elementwise ops — stack pop/push via one-hot masks
+    over a (B, S) stack, child ordering via a static sorting network."""
     B = rays["org"].shape[0]
     arity = dev["nodes"].shape[1] // 7
     m = dev["tris"].shape[1] // 14

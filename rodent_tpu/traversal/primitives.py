@@ -1,12 +1,12 @@
-"""Ray-triangle and ray-box primitives, batched for the VPU.
+"""Ray-triangle and ray-box primitives, batched over ray arrays.
 
 Semantics mirror src/traversal/intersection.impala:
 - Moller-Trumbore with precomputed edges and the sign-trick division
   deferral (intersect_ray_tri, :164-192): all comparisons happen on
   det-scaled values, one reciprocal at the end.
 - slab ray-box test (intersect_ray_box, :194-208), unordered variant
-  (octant-ordered loads are a CPU-SIMD trick; on TPU min/max pairs are
-  one VPU op each so ordering buys nothing).
+  (octant-ordered loads are a CPU-SIMD trick; over batched arrays min/max
+  pairs are one elementwise op each so ordering buys nothing).
 """
 from __future__ import annotations
 

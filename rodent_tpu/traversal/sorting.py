@@ -1,24 +1,15 @@
 """Ray reordering for incoherent workloads.
 
 The reference's hybrid kernel handles divergence per-SIMD-packet
-(mapping_cpu.impala:259-384); on TPU the megabatch analog is *reordering*:
-group rays so that lockstep tiles traverse similar node sets, which
-shortens the while-loop tail (iterations = max pops over the batch) and
-improves gather locality. Octant + origin-Morton sorting is the classic
-ray-stream reordering (cf. PAPERS.md, "On Ray Reordering Techniques for
-Faster GPU Ray Tracing").
+(mapping_cpu.impala:259-384); for megabatches the analog is *reordering*:
+group rays so that neighbouring rays (one lockstep row, one warp of the
+walk kernel) traverse similar node sets, which shortens the while-loop
+tail and improves gather locality. Octant + origin-Morton sorting is the
+classic ray-stream reordering (cf. PAPERS.md, "On Ray Reordering
+Techniques for Faster GPU Ray Tracing").
 
 sort_rays returns a permutation; callers traverse the permuted batch and
 scatter results back (see tools/bench_traversal --sort).
-
-Measured caveat (v5e, 260K-tri hall, 262K random any-hit rays): the
-current lockstep megabatch loop is *order-insensitive* — every iteration
-costs the same over the full batch regardless of ray order, so sorting
-showed no speedup (1.77 Mrays/s either way), and chunking to expose
-per-chunk tails cost more in fixed per-chunk overhead than it saved.
-Reordering will matter for the planned Pallas shared-stack packet kernel,
-where a tile shares one traversal stack and coherence directly cuts the
-node set per tile.
 """
 from __future__ import annotations
 
@@ -52,13 +43,8 @@ def ray_sort_keys(org, d, scene_lo, scene_hi):
     """Sort key = coarse origin Morton (9 bits, 8^3 grid), then octant
     (3 bits), then direction Morton (20 bits). Origin-major groups rays
     from one scene cell; within a cell, octant+direction bits sort rays
-    into compact cones. Measured sweet spot (v5e, hall-260K, packet
-    kernel, experiments/measure_sorts.py): org9|oct|dir beats both the
-    old oct|org15|dir key (ao 2.8 vs 2.3, bounces 3.3 vs 2.8 Mrays/s)
-    and finer origin grids (org12/15/18 all slower — too few direction
-    bits left per cell). For same-origin primaries the org bits are
-    constant, so the key degrades gracefully to pure octant+cone order
-    (which the primary sweep confirms is what the kernel wants)."""
+    into compact cones. For same-origin primaries the org bits are
+    constant, so the key degrades gracefully to pure octant+cone order."""
     if not isinstance(org, tuple):
         org = (org[:, 0], org[:, 1], org[:, 2])
     if not isinstance(d, tuple):

@@ -1,26 +1,21 @@
-"""Tile-layout BVH traversal: the production TPU path.
+"""Tile-layout BVH traversal: the XLA engine.
 
-Why this exists (measured on v5e): XLA tiles a (B, k) array with small k
-as (8, 128) vector tiles along the LAST dim, so every (B, 1)/(B, 8)
-intermediate wastes up to 127/128 lanes; inside the traversal loop that
-made each fused op ~50-100x slower than peak. This implementation keeps
-every per-ray scalar in (R, 128) full-tile layout (B = R*128):
+Every per-ray scalar lives in (R, 128) component layout (B = R*128), and
+the whole traversal is plain jnp/lax, so XLA compiles it for any backend:
 
-- the traversal stack is a tuple of S (R, 128) arrays (loop-carried
+- the traversal stacks are tuples of (R, 128) arrays (loop-carried
   pytree); pop/push are one-hot select chains that XLA fuses into single
   passes over the stack;
-- node/tri fetches stay single flat row gathers (B, 56) — the only
-  layout-efficient random access — followed by one transpose/reshape to
-  (56, R, 128) so each component is a full-tile (R, 128) slice;
+- node/tri fetches are single flat row gathers (B, 7A) / (B, 14M)
+  followed by one transpose/reshape so each component is an (R, 128)
+  slice;
 - child ordering uses the Batcher sorting network on (R, 128) columns
   (the data-parallel analog of src/traversal/stack.impala sort_n).
 
 Staged row compaction (compact_stages > 0): the lockstep loop pays
-max-trips x full width while mean utilization is 0.31-0.43 (measured
-counters). Per-ray compaction is unaffordable (~60 state arrays of 1D
-gathers per element), but at 128-ray ROW granularity cone-sorted rays
-die together (experiments/analyze_row_compaction.py: staged halving
-saves 1.7x/2.1x/2.0x total row-iterations on primary/ao/bounces). Each
+max-trips x full width while most rays are already done. Per-ray
+compaction is unaffordable (~60 state arrays of 1D gathers per element),
+but at 128-ray ROW granularity cone-sorted rays die together. Each
 stage runs the while_loop until the live rows fit in half the width,
 permutes live rows to the front (row gathers), retires the dead half's
 hits, and statically re-traces the SAME body at half width — a cascade
@@ -52,24 +47,6 @@ from ..core.tiles import tile as _tile  # noqa: E402
 NODE_STACK_DEPTH = 24
 LEAF_STACK_DEPTH = 16
 
-# Row-gather strategy for tables past the round-3 fast-gather cliff
-# (>~28K rows; ROADMAP round-3 study measured 10.4 vs 2.5 ns/row there).
-# MEASURED round 4 (experiments/probe_tri_gather.py, on-device): the
-# cliff is GONE on the current jaxlib/libtpu — plain row gathers run
-# 3.8-4.1 ns/row up to 131K rows at any of the probed table sizes (the
-# next cliff is at ~256K rows / row-width-bound for >=224-col rows), and
-# BOTH shard modes lose outright (isolated: plain 5.5 vs shard2 9.2-9.5
-# ns/row; composed into this loop on hall ao/bounces: plain 4.83/4.67 vs
-# shard-rows 4.08/3.83, shard-cmaj 4.01/3.74 Mrays/s). "plain" is the
-# production default by measurement; the shard modes stay as probe hooks
-# ("shard-rows" = sub-table gathers + select on (B, C) rows,
-# "shard-cmaj" = per-shard gather + transpose to (C, R, 128) then
-# select) so a future platform regression can be re-probed in one run.
-_LEAF_GATHER = "plain"
-_CLIFF_ROWS = 28672
-_SHARD_ROWS = 22528
-
-
 def _stage_loop(dev, rays, state, stop_rows, any_hit, S_N, S_L,
                 debug_counters=False, ablate=(), fixed_iters=0):
     """One lockstep dual-queue while_loop at the current (static) width.
@@ -93,38 +70,9 @@ def _stage_loop(dev, rays, state, stop_rows, any_hit, S_N, S_L,
     zero = jnp.zeros((R, 128), jnp.int32)
 
     def gather_cols(table, idx):
-        """Flat row gather + relayout to component-major (C, R, 128),
-        routed by _LEAF_GATHER for tables past the fast-gather cliff."""
-        n, c = table.shape
-        mode = _LEAF_GATHER if n > _CLIFF_ROWS else "plain"
-        nsh = -(-n // _SHARD_ROWS)
-        if mode == "plain" or not 2 <= nsh <= 3:
-            rows = table[idx.reshape(R * 128)]            # (B', C)
-            return rows.T.reshape(c, R, 128)
-        s = -(-n // nsh)
-        idx_flat = idx.reshape(R * 128)
-        if mode == "shard-rows":
-            # (B, C)-select form (core.tiles.gather_rows inline so the
-            # shard count matches nsh exactly)
-            out = None
-            for i in range(nsh):
-                hi = min((i + 1) * s, n)
-                loc = jnp.clip(idx_flat - i * s, 0, hi - i * s - 1)
-                g = table[i * s:hi][loc]
-                out = g if out is None else jnp.where(
-                    (idx_flat >= i * s)[:, None], g, out)
-            return out.T.reshape(c, R, 128)
-        # shard-cmaj: per-shard gather keeps its own gather->transpose
-        # fusion; the select runs on component-major full-tile arrays
-        out = None
-        for i in range(nsh):
-            hi = min((i + 1) * s, n)
-            loc = jnp.clip(idx_flat - i * s, 0, hi - i * s - 1)
-            g = table[i * s:hi][loc]
-            comp = g.T.reshape(c, R, 128)
-            out = comp if out is None else jnp.where(
-                (idx >= i * s)[None], comp, out)
-        return out
+        """Flat row gather + relayout to component-major (C, R, 128)."""
+        rows = table[idx.reshape(R * 128)]                # (B', C)
+        return rows.T.reshape(table.shape[1], R, 128)
 
     def pop(stack_list, ptr, can):
         top = ptr - 1
@@ -139,8 +87,7 @@ def _stage_loop(dev, rays, state, stop_rows, any_hit, S_N, S_L,
 
     def cond(s):
         if fixed_iters:
-            # waterfall mode (experiments/waterfall_tiled.py): run exactly
-            # fixed_iters trips so ablations share one pop schedule and
+            # waterfall mode: run exactly fixed_iters trips so ablations share one pop schedule and
             # time deltas isolate per-trip cost components
             return s["iters"] < fixed_iters
         live = (s["nptr"] > 0) | (s["lptr"] > 0)
@@ -155,10 +102,9 @@ def _stage_loop(dev, rays, state, stop_rows, any_hit, S_N, S_L,
         nptr, lptr = state["nptr"], state["lptr"]
         t_cur = state["t"]
 
-        # ---- leaf-unit gate (round 3): leaf pops are only ~2-2.6/ray
-        # while node pops are ~9.5-12 (ROADMAP study), yet the leaf unit's
-        # tri-row gather + M-lane MT test used to run EVERY iteration —
-        # the single biggest line item on incoherent distributions. Serve
+        # ---- leaf-unit gate: leaf pops are a few per ray while node
+        # pops are several times more, yet an ungated leaf unit runs its
+        # tri-row gather + M-lane MT test EVERY iteration. Serve
         # the leaf unit only when the global backlog is worth a batch
         # (>= live/4) or when no node can progress without it (rays whose
         # node unit stalls on a near-full leaf stack — the progress
@@ -377,15 +323,10 @@ def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
     one compiled body) so the lockstep loop pays each chunk's OWN
     max-trips instead of the global max — the reference bounds the same
     tail per 16x16 tile (cpu_parallel_tiles, mapping_cpu.impala:3-33).
-    MEASURED TO LOSE on the hall megabatch rows (honest sync-fetch
-    timing: ao 4.08 vs 4.90, bounces 3.49 vs 4.72 Mrays/s at sb16 —
-    cone-sorted chunks share the global max-trips, so chunking only
-    adds lax.map serialization; probe_sb_depth.py, results_tpu_r5.txt.
-    An earlier +45% readout was a block_until_ready-returns-early
-    artifact on lax.map programs). Kept for trip-skewed ray sets and
-    the renderer policy space. Ignored when R is not divisible into
-    chunks of >= 8 rows or under debug_counters/fixed_iters
-    (schedule-pinned diagnostics)."""
+    Cone-sorted chunks tend to share the global max-trips, in which case
+    chunking only adds lax.map serialization. Ignored when R is not
+    divisible into chunks of >= 8 rows or under
+    debug_counters/fixed_iters (schedule-pinned diagnostics)."""
     from .api import BvhMeta
     R_all = tmin.shape[0]
     if (sub_batches > 1 and R_all % sub_batches == 0
@@ -469,9 +410,7 @@ def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
 
 def _traverse_staged(dev, rays, state, any_hit, S_N, S_L, max_stages):
     """Staged-halving cascade: while_loops at R, R/2, R/4, ... widths with
-    row compaction between stages (experiments/analyze_row_compaction.py:
-    total row-iterations drop 1.7-2.1x on cone-sorted hall batches).
-    Returns the full-width hit dict in original row order."""
+    row compaction between stages. Returns the full-width hit dict in original row order."""
     R = state["nptr"].shape[0]
     row_ids = jnp.arange(R, dtype=jnp.int32)
     outs = {k: state[k] for k in _HIT_KEYS}   # misses stay as initialized

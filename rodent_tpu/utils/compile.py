@@ -1,66 +1,23 @@
-"""Central jit wrapper carrying the project's TPU compiler options.
+"""Persistent compilation cache location, shared by the scripts and tools.
 
-Measured on v5e (ROADMAP round-3 study): XLA row gathers fall off a
-cliff — 2.5 ns/row -> 10.6 ns/row — once the gathered table exceeds
-~28K rows / ~11 MB, independent of row width or dtype. The cliff is
-XLA's default scoped-VMEM budget for gather staging: raising it with
-xla_tpu_scoped_vmem_limit_kib=65536 restores 2.48 ns/row on a 43K-row
-table (4.2x). Every hot path in this framework leans on row gathers
-(traversal node/tri tables, surface/vertex/material fetches, texture
-banks), so the option is applied to all production jits through rjit.
-
-rjit(fn, **jit_kwargs) == jax.jit(fn, **jit_kwargs) plus the TPU
-compiler options when the active backend is TPU. Backend detection is
-deferred to the first call so importing this module never initializes
-a backend (tests force CPU in conftest before any jit runs).
+JAX_COMPILATION_CACHE_DIR wins when it is set (JAX reads it itself);
+otherwise the cache lives in a fixed `.jax_cache/` at the checkout root,
+so that every process of one checkout finds what the others compiled.
 """
 from __future__ import annotations
 
-import functools
+import os
 
 import jax
 
-# 64 MiB of scoped VMEM (v5e has 128 MiB): enough for gather staging on
-# every table in the framework without starving fusion scratch. Raising
-# further showed no additional gather gain in probes.
-TPU_COMPILER_OPTIONS = {"xla_tpu_scoped_vmem_limit_kib": "65536"}
+CHECKOUT_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
-def compiler_options():
-    """The compiler options for the current default backend (None when
-    not TPU — CPU/GPU compilers reject the TPU flag)."""
-    return (dict(TPU_COMPILER_OPTIONS)
-            if jax.default_backend() == "tpu" else None)
-
-
-def rjit(fn=None, **jit_kwargs):
-    """Drop-in jax.jit replacement that adds TPU compiler options.
-
-    Usable as @rjit, @rjit(static_argnames=...), or rjit(fn, ...). The
-    underlying jax.jit object is created lazily on first call (backend
-    probe) and exposed common attributes (clear_cache, lower) proxy to
-    it."""
-    if fn is None:
-        return lambda f: rjit(f, **jit_kwargs)
-
-    holder = {}
-
-    def _jitted():
-        if "jf" not in holder:
-            opts = compiler_options()
-            holder["jf"] = jax.jit(fn, compiler_options=opts,
-                                   **jit_kwargs)
-        return holder["jf"]
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        return _jitted()(*args, **kwargs)
-
-    def clear_cache():
-        if "jf" in holder:
-            holder["jf"].clear_cache()
-        holder.clear()
-
-    wrapper.clear_cache = clear_cache
-    wrapper.lower = lambda *a, **k: _jitted().lower(*a, **k)
-    return wrapper
+def enable_compile_cache():
+    """Turns the persistent compilation cache on; returns its directory."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = os.path.join(CHECKOUT_ROOT, ".jax_cache")
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -3,8 +3,7 @@
 The reference wraps wavefront stages in compile-time-gated timing counters
 (cpu_profile, src/core/cpu_common.impala:11-24) and prints per-stage
 percentages + total rays at exit (render/mapping_cpu.impala:453-472).
-On TPU, in-kernel timing is meaningless (everything is one fused program),
-so the equivalent is host-side wall timers around blocking device calls
+One render iteration is one fused device program, so the equivalent is host-side wall timers around blocking device calls
 plus ray/sample accounting, with the same percentage report. jax.profiler
 traces remain available for op-level analysis (jax.profiler.trace).
 """

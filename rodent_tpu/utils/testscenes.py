@@ -11,6 +11,8 @@ rays from a camera inside the hall produce a similar traversal profile
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -431,6 +433,109 @@ def _pinhole(eye, dirv, width, height, fov=60.0):
     dirs = dirs.reshape(-1, 3).astype(np.float32)
     org = np.tile(np.asarray(eye, np.float32)[None], (len(dirs), 1))
     return org, dirs
+
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "tests", "fixtures")
+CORNELL_OBJ = os.path.join(FIXTURE_DIR, "cornell_box.obj")
+
+# Cornell box materials (the classic measured reflectances; the light's
+# Ke is the reference fixture's): name -> MTL body lines
+_CORNELL_MTL = {
+    "floor": "Kd 0.725 0.71 0.68",
+    "ceiling": "Kd 0.725 0.71 0.68",
+    "backWall": "Kd 0.725 0.71 0.68",
+    "rightWall": "Kd 0.14 0.45 0.091",
+    "leftWall": "Kd 0.63 0.065 0.05",
+    "shortBox": "Kd 0.725 0.71 0.68",
+    "tallBox": "Kd 0.725 0.71 0.68",
+    "light": "Kd 0.78 0.78 0.78\nKe 17 12 4",
+}
+
+
+def _cornell_quads():
+    """(material, 4 corners, inward/outward normal) for the 18 quads:
+    box x in [-1, 1], y in [0, 2], z in [-1, 1] open at +z, two rotated
+    white blocks and a ceiling light facing down, so that the reference
+    camera (eye (0, 1, 2.7), looking -z, fov 60) frames it."""
+    quads = [
+        ("floor", [(-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1)],
+         (0, 1, 0)),
+        ("ceiling", [(-1, 2, -1), (1, 2, -1), (1, 2, 1), (-1, 2, 1)],
+         (0, -1, 0)),
+        ("backWall", [(-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1)],
+         (0, 0, 1)),
+        ("rightWall", [(1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1)],
+         (-1, 0, 0)),
+        ("leftWall", [(-1, 0, -1), (-1, 0, 1), (-1, 2, 1), (-1, 2, -1)],
+         (1, 0, 0)),
+    ]
+    for name, (cx, cz), height, angle in (("shortBox", (0.33, 0.37), 0.6,
+                                           17.0),
+                                          ("tallBox", (-0.33, -0.29), 1.2,
+                                           -17.0)):
+        a = np.radians(angle)
+        ax = np.asarray([np.cos(a), 0.0, np.sin(a)]) * 0.3
+        az = np.asarray([-np.sin(a), 0.0, np.cos(a)]) * 0.3
+        c = np.asarray([cx, 0.0, cz])
+        up = np.asarray([0.0, height, 0.0])
+        base = [c - ax - az, c + ax - az, c + ax + az, c - ax + az]
+        top = [p + up for p in base]
+        quads.append((name, top, (0, 1, 0)))
+        quads.append((name, base, (0, -1, 0)))
+        for i in range(4):
+            j = (i + 1) % 4
+            side = [base[i], base[j], top[j], top[i]]
+            out = (base[i] + base[j]) / 2 - c
+            quads.append((name, side, tuple(out)))
+    quads.append(("light", [(-0.25, 1.98, -0.3), (0.25, 1.98, -0.3),
+                            (0.25, 1.98, 0.2), (-0.25, 1.98, 0.2)],
+                  (0, -1, 0)))
+    return quads
+
+
+def cornell_box_obj():
+    """OBJ text of the Cornell box fixture: 18 quads of 4 unshared
+    vertices each (flat shading), wound so that cross(v1 - v0, v2 - v0)
+    points along each quad's intended normal."""
+    lines = ["# Cornell box, generated by rodent_tpu.utils.testscenes",
+             "mtllib cornell_box.mtl"]
+    faces = []
+    nv = 0
+    for name, corners, normal in _cornell_quads():
+        p = np.asarray(corners, np.float64)
+        if np.dot(np.cross(p[1] - p[0], p[2] - p[0]), normal) < 0:
+            p = p[::-1]
+        for x in p:
+            lines.append("v " + " ".join(f"{c + 0.0:.4f}" for c in x))
+        faces.append((name, nv))
+        nv += 4
+    cur = None
+    for name, v0 in faces:
+        if name != cur:
+            lines.append(f"usemtl {name}")
+            cur = name
+        lines.append("f " + " ".join(str(v0 + k + 1) for k in range(4)))
+    return "\n".join(lines) + "\n"
+
+
+def cornell_box_mtl():
+    out = ["# Cornell box materials, generated by "
+           "rodent_tpu.utils.testscenes"]
+    for name, body in _CORNELL_MTL.items():
+        out += [f"newmtl {name}", "Ka 0 0 0", body, "Ks 0 0 0", "Ns 10",
+                "Ni 1", "illum 2", ""]
+    return "\n".join(out)
+
+
+def write_cornell_box(directory=FIXTURE_DIR):
+    """Writes cornell_box.obj and cornell_box.mtl into directory."""
+    os.makedirs(directory, exist_ok=True)
+    for name, text in (("cornell_box.obj", cornell_box_obj()),
+                       ("cornell_box.mtl", cornell_box_mtl())):
+        with open(os.path.join(directory, name), "w") as fh:
+            fh.write(text)
+    return os.path.join(directory, "cornell_box.obj")
 
 
 SCENES = {

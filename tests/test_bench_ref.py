@@ -4,6 +4,7 @@ that shares no code with the production engines. These tests pin it
 against the brute-force oracle and the production traversal, so it can
 serve as the second, independent measurement behind every throughput
 claim (tools/bench_ref CLI)."""
+import os
 import subprocess
 import sys
 
@@ -13,8 +14,11 @@ import pytest
 
 from rodent_tpu.accel import build_bvh
 from rodent_tpu.native import available
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 from rodent_tpu.traversal.api import (bvh_to_device, intersect_bruteforce,
                                       make_rays, traverse)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.skipif(not available(),
                                 reason="native library unavailable")
@@ -87,11 +91,11 @@ def test_bench_ref_cli_output_shape(tmp_path):
     formats.write_rays(str(tmp_path / "c.rays"), org, d)
     out = subprocess.run(
         [sys.executable, "-m", "rodent_tpu.tools.bench_ref",
-         "-obj", "/root/reference/testing/cornell_box.obj",
+         "-obj", CORNELL_OBJ,
          "-ray", str(tmp_path / "c.rays"), "--bench", "2",
          "-o", str(tmp_path / "c.fbuf")],
-        capture_output=True, text=True, cwd="/root/repo",
-        env={"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin"})
+        capture_output=True, text=True, cwd=ROOT,
+        env={"PYTHONPATH": ROOT, "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     # bench_embree.cpp:407-413 output shape
@@ -104,17 +108,17 @@ def test_bench_ref_cli_output_shape(tmp_path):
 
 
 def test_bench_ref_ao_implies_any_hit(tmp_path):
-    """--dist ao must measure any-hit occlusion by default (the TPU rows
-    it anchors always do); --closest restores closest-hit. The fbuf in
+    """--dist ao must measure any-hit occlusion by default (the benchmark
+    rows it anchors always do); --closest restores closest-hit. The fbuf in
     any-hit mode holds 0/1 occlusion flags, in closest mode hit
     distances."""
     common = [sys.executable, "-m", "rodent_tpu.tools.bench_ref",
               "--scene", "hall", "--tris", "2000", "--dist", "ao",
               "--width", "16", "--height", "16", "--bench", "1"]
-    env = {"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin"}
+    env = {"PYTHONPATH": ROOT, "PATH": "/usr/bin:/bin"}
     from rodent_tpu.io import formats
     out = subprocess.run(common + ["-o", str(tmp_path / "a.fbuf")],
-                         capture_output=True, text=True, cwd="/root/repo",
+                         capture_output=True, text=True, cwd=ROOT,
                          env=env)
     assert out.returncode == 0, out.stderr
     vals = formats.read_fbuf(str(tmp_path / "a.fbuf"))
@@ -122,7 +126,7 @@ def test_bench_ref_ao_implies_any_hit(tmp_path):
     out2 = subprocess.run(common + ["--closest",
                                     "-o", str(tmp_path / "c.fbuf")],
                           capture_output=True, text=True,
-                          cwd="/root/repo", env=env)
+                          cwd=ROOT, env=env)
     assert out2.returncode == 0, out2.stderr
     vals2 = formats.read_fbuf(str(tmp_path / "c.fbuf"))
     hit = vals > 0.5

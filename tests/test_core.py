@@ -130,7 +130,7 @@ def test_russian_roulette():
 def test_gather_cols_select_bit_identical():
     """The small-table select-chain gather must reproduce gather_cols
     bit-for-bit — including bitcast-integer columns whose f32 bit
-    patterns are denormal (the chain runs on the int32 view so no TPU
+    patterns are denormal (the chain runs on the int32 view so no
     arithmetic can flush them)."""
     import jax
     from rodent_tpu.core.tiles import gather_cols, gather_cols_select
@@ -146,20 +146,3 @@ def test_gather_cols_select_bit_identical():
     a = np.asarray(gather_cols(table, idx))
     b = np.asarray(gather_cols_select(table, idx))
     np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
-
-
-def test_gather_rows_sharded_matches_plain():
-    """Tables in the 2-3-shard regime (22K < rows <= 67K) gather via
-    sub-table gathers + select; values must equal a plain gather,
-    including indices on shard boundaries."""
-    from rodent_tpu.core.tiles import SHARD_ROWS, gather_rows, shard_count
-    r = np.random.RandomState(9)
-    n = SHARD_ROWS + 1000          # 2 shards
-    assert shard_count(n) == 2
-    table = jnp.asarray(r.randn(n, 4).astype(np.float32))
-    idx = np.concatenate([r.randint(0, n, 500),
-                          [0, n - 1, SHARD_ROWS - 1, SHARD_ROWS,
-                           SHARD_ROWS + 1]]).astype(np.int32)
-    got = np.asarray(gather_rows(table, jnp.asarray(idx)))
-    want = np.asarray(table)[idx]
-    np.testing.assert_array_equal(got, want)

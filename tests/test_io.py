@@ -6,8 +6,9 @@ import numpy as np
 import pytest
 
 from rodent_tpu.io import formats, obj, png
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 
-REF = "/root/reference/testing"
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
 
 def test_png_roundtrip(tmp_path):
@@ -18,17 +19,18 @@ def test_png_roundtrip(tmp_path):
     np.testing.assert_array_equal(got, img)
 
 
-@pytest.mark.skipif(not os.path.exists(f"{REF}/ref-primary.png"), reason="no ref")
 def test_png_reads_reference_golden():
-    img = png.read_png(f"{REF}/ref-primary.png")
+    """Decodes an in-repo golden written by the renderer's own encoder
+    (tests/golden/hall.png, 160x90 RGB)."""
+    img = png.read_png(os.path.join(GOLDEN, "hall.png"))
     assert img.ndim == 3 and img.shape[2] in (1, 2, 3, 4)
-    assert img.shape[0] > 100 and img.shape[1] > 100
-    # sponza primary-depth image: nontrivial content
+    assert img.shape[:2] == (90, 160)
+    # a lit interior: nontrivial content
     assert int(img.max()) > 50 and int(img.min()) < int(img.max())
 
 
 def test_obj_cornell_box():
-    mesh, materials, mtl_lib = obj.load_scene_mesh(f"{REF}/cornell_box.obj")
+    mesh, materials, mtl_lib = obj.load_scene_mesh(CORNELL_OBJ)
     # 18 quads split into 2 tris each: 5 walls + 6+6 box faces + light
     assert mesh.num_tris == 2 * (5 + 6 + 6 + 1)
     assert "light" in materials
@@ -113,7 +115,7 @@ def test_native_obj_loader_matches_python():
     from rodent_tpu.io.obj import load_scene_mesh
     if not native.available():
         pytest.skip("native library unavailable")
-    path = "/root/reference/testing/cornell_box.obj"
+    path = CORNELL_OBJ
     out = native.obj_load(path)
     assert out is not None
     verts, norms, texs, fnorm, idx, names, libs = out
@@ -129,3 +131,19 @@ def test_native_obj_loader_matches_python():
     mesh2, names2, mtl = load_scene_mesh(path)
     np.testing.assert_array_equal(mesh2.vertices, verts)
     assert "light" in mtl or len(mtl) > 0
+
+
+def test_cornell_fixture_matches_generator(tmp_path):
+    """tests/fixtures/cornell_box.{obj,mtl} are exactly what
+    utils.testscenes writes, and its layout is the classic box the
+    reference camera expects."""
+    from rodent_tpu.utils import testscenes
+    testscenes.write_cornell_box(str(tmp_path))
+    for name in ("cornell_box.obj", "cornell_box.mtl"):
+        with open(os.path.join(testscenes.FIXTURE_DIR, name)) as a, \
+                open(tmp_path / name) as b:
+            assert a.read() == b.read(), name
+    mesh, _, _ = obj.load_scene_mesh(CORNELL_OBJ)
+    lo, hi = mesh.vertices.min(0), mesh.vertices.max(0)
+    np.testing.assert_allclose(lo, [-1, 0, -1])
+    np.testing.assert_allclose(hi, [1, 2, 1])

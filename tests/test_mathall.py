@@ -2,7 +2,7 @@
 
 The reference's renderer bench runs six full-MTL interiors mixing
 textured, specular, glass and mirror shaders
-(/root/reference/benchmarks/bench.sh:9-85; shader emission
+(benchmarks/bench.sh:9-85; shader emission
 converter.cpp:859-927); the plain procedural bench scenes here are
 palette-diffuse, so mathall (make_hall(rich_mats=True) +
 mat_hall_materials via compile_mesh's materials/tex_images extension)
@@ -50,7 +50,7 @@ def test_mathall_renders_lit_and_finite(mathall):
     iters = 2
     for i in range(iters):
         film = render_iteration_persistent(mathall.device, cam, film,
-                                           W, H, 1, i, packet=False,
+                                           W, H, 1, i, engine="tiled",
                                            compact=0)
     raw = np.asarray(film)
     assert np.isfinite(raw).all() and raw.min() >= 0.0

@@ -6,6 +6,7 @@ import pytest
 
 from rodent_tpu.render.camera import Camera
 from rodent_tpu.render import light as light_mod
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +118,7 @@ def test_debug_renderer_cornell():
     from rodent_tpu.render import film as film_mod
 
     W, H = 64, 48
-    scene = compile_obj("/root/reference/testing/cornell_box.obj",
+    scene = compile_obj(CORNELL_OBJ,
                         max_path_len=4)
     cam = Camera.make((0, 1, 2.7), (0, 0, -1), (0, 1, 0), 60.0, W, H)
     film = film_mod.new_film(W, H)

@@ -2,11 +2,16 @@
 
 The reference's quality gate renders cornell with --eye 0 1 2.7 --dir 0 0 -1
 (default 1080x720, fov 60, spp 4) for 50 iterations and MSE-compares
-against testing/ref-cornell.png (cmake/test/run_rodent.cmake). Full-res
-golden comparison runs on TPU via tools/render + bench; here we render a
-small image on CPU and check physical properties + a loose comparison
-against the downsampled golden.
+against testing/ref-cornell.png (cmake/test/run_rodent.cmake). That image
+cannot be redistributed, so the fixture is the in-repo Cornell box
+(tests/fixtures) and the golden is this renderer's own converged film of
+it (tests/golden/cornell.png, experiments/make_goldens.py): the
+comparison catches regressions, not differences from the reference
+renderer. Here we render a small image on CPU and check physical
+properties + a loose comparison against the downsampled golden.
 """
+import os
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -16,14 +21,15 @@ from rodent_tpu.render.camera import Camera
 from rodent_tpu.render.compiler import compile_obj
 from rodent_tpu.render import film as film_mod
 from rodent_tpu.render.integrator import render_iteration
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 
-REF = "/root/reference/testing"
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cornell.png")
 W, H = 96, 64
 
 
 @pytest.fixture(scope="module")
 def cornell():
-    return compile_obj(f"{REF}/cornell_box.obj", max_path_len=8)
+    return compile_obj(CORNELL_OBJ, max_path_len=8)
 
 
 @pytest.fixture(scope="module")
@@ -74,8 +80,8 @@ def test_render_colors(cornell_img):
 
 def test_render_against_downsampled_golden(cornell_img):
     img, _ = cornell_img
-    ref = png.read_png(f"{REF}/ref-cornell.png")[..., :3]
-    # box-downsample the 1080x720 golden to our render size
+    ref = png.read_png(GOLDEN)[..., :3]
+    # box-downsample the golden to our render size
     fh, fw = ref.shape[0] // H, ref.shape[1] // W
     ref_small = ref[:fh * H, :fw * W].reshape(H, fh, W, fw, 3).mean((1, 3))
     diff = np.abs(ref_small - img.astype(np.float64))
@@ -113,14 +119,14 @@ def test_persistent_matches_progressive(cornell):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_packet_render_matches(cornell):
-    """Rendering with the Pallas packet traversal (interpret mode on CPU)
-    must match the XLA-traversal film bit-for-bit (same RNG streams)."""
+def test_walk_render_matches(cornell):
+    """Rendering with the per-ray walk kernel (Pallas interpreter on the
+    CPU) matches the XLA-traversal film (same RNG streams)."""
     from rodent_tpu.render.integrator import render_iteration as ri
     cam = Camera.make((0, 1, 2.7), (0, 0, -1), (0, 1, 0), 60.0, 16, 16)
     f1 = ri(cornell.device, cam, film_mod.new_film(16, 16), 16, 16, 1, 0)
     f2 = ri(cornell.device, cam, film_mod.new_film(16, 16), 16, 16, 1, 0,
-            packet=True)
+            engine="walk-interpret")
     np.testing.assert_allclose(np.asarray(f2), np.asarray(f1),
                                rtol=1e-5, atol=1e-6)
 
@@ -133,50 +139,49 @@ def test_sorted_traversal_matches(cornell):
     from rodent_tpu.render.integrator import render_iteration_persistent
     cam = Camera.make((0, 1, 2.7), (0, 0, -1), (0, 1, 0), 60.0, 24, 16)
 
-    def run(packet, sort):
+    def run(engine, sort):
         return np.asarray(render_iteration_persistent(
             cornell.device, cam, film_mod.new_film(24, 16), 24, 16, 2, 0,
-            pool=256, packet=packet, sort=sort))
+            pool=256, engine=engine, sort=sort))
 
-    base = run(False, False)
-    np.testing.assert_array_equal(run(False, True), base)
-    np.testing.assert_array_equal(run(True, True), run(True, False))
+    base = run("tiled", False)
+    np.testing.assert_array_equal(run("tiled", True), base)
+    np.testing.assert_array_equal(run("walk-interpret", True),
+                                  run("walk-interpret", False))
 
 
 def test_traversal_policies_agree(cornell):
-    """packet=False / True / "hybrid" must produce the same film up to
-    float reassociation noise across separately-compiled kernels (the
-    hybrid policy peels depth-0 onto the packet kernel)."""
+    """Every traversal engine must produce the same film up to float
+    reassociation noise across separately-compiled kernels."""
     from rodent_tpu.render.integrator import render_sample
     scene = cornell
     w, h = 24, 16
     cam = Camera.make((0, 1, 2.7), (0, 0, -1), (0, 1, 0), 60.0, w, h)
     film0 = jnp.zeros((w * h, 3), jnp.float32)
     films = [np.asarray(render_sample(scene.device, cam, film0, w, h, 0, 0,
-                                      packet=pol))
-             for pol in (False, True, "hybrid", "hbm", "hybrid-hbm",
-                         "giga", "hybrid-giga", "dense")]
+                                      engine=eng))
+             for eng in ("tiled", "dense", "walk-interpret")]
     for f in films[1:]:
         np.testing.assert_allclose(f, films[0], atol=1e-5, rtol=1e-5)
 
 
 def test_dense_persistent_film_matches(cornell):
-    """packet="dense" (small-scene brute-force traversal) runs the same
+    """The dense engine (small-scene brute-force traversal) runs the same
     Moller-Trumbore as the BVH engines, so the persistent renderer's
     film must match the tiled-traversal film on cornell up to FMA-
-    contraction ULP noise — and packet_mode must auto-select it for
+    contraction ULP noise — and the CPU engine choice must pick it for
     cornell-class scenes."""
-    from rodent_tpu.render.compiler import packet_mode
     from rodent_tpu.render.integrator import render_iteration_persistent
-    assert packet_mode(cornell.device) == "dense"
+    from rodent_tpu.traversal.engine import select_engine
+    assert select_engine(cornell.device["bvh"], "cpu") == "dense"
     cam = Camera.make((0, 1, 2.7), (0, 0, -1), (0, 1, 0), 60.0, 24, 16)
 
-    def run(packet):
+    def run(engine):
         return np.asarray(render_iteration_persistent(
             cornell.device, cam, film_mod.new_film(24, 16), 24, 16, 2, 0,
-            pool=256, packet=packet))
+            pool=256, engine=engine))
 
-    np.testing.assert_allclose(run("dense"), run(False),
+    np.testing.assert_allclose(run("dense"), run("tiled"),
                                rtol=1e-5, atol=1e-5)
 
 
@@ -219,8 +224,8 @@ def test_pool_sort_film_bit_identical(cornell):
 
 
 def test_sub_batch_film_bit_identical(cornell):
-    """sub=k chunks the dual-queue traversals into sequential lax.map
-    sub-batches (round 5, lockstep-tail bound); chunking changes the
+    """sub=k chunks the tiled engine's traversals into sequential lax.map
+    sub-batches (lockstep-tail bound); chunking changes the
     loop schedule, never the per-ray result, so the film must be
     bit-identical — including under pool-sort and with a pool wide
     enough for the split to engage (pool=2048 -> 16 rows, sub=2 ->
@@ -231,7 +236,7 @@ def test_sub_batch_film_bit_identical(cornell):
     def run(**kw):
         return np.asarray(render_iteration_persistent(
             cornell.device, cam, film_mod.new_film(64, 32), 64, 32, 2, 0,
-            pool=2048, packet=False, compact=3, **kw))
+            pool=2048, engine="tiled", compact=3, **kw))
 
     base = run()
     np.testing.assert_array_equal(run(sub=2), base)
@@ -240,10 +245,9 @@ def test_sub_batch_film_bit_identical(cornell):
 
 
 def test_pool_rule_from_enclosure():
-    """select_render_policy derives the hybrid-tier pool size from the
+    """select_render_policy derives the pool size from the
     shell_coverage enclosure statistic instead of hardcoding per scene
-    (round-4 measured signs: enclosed hall wins at 64K, open crown at
-    the default 32K)."""
+    (enclosed hall gets 64K, open crown the default 32K)."""
     from rodent_tpu.render.compiler import (compile_mesh,
                                             select_render_policy,
                                             shell_coverage)
@@ -259,17 +263,12 @@ def test_pool_rule_from_enclosure():
 
 
 def test_engine_routing_film_identical(cornell):
-    """Round-4 per-distribution engine routing (VERDICT item 1): routing
-    bounce rays to the dual-queue loop, shadow rays to a different
-    engine, or splitting depth-0 rays onto the packet kernel changes
-    which (exact-parity) kernel serves a ray, never the estimator — all
-    policies must produce the SAME film, including with pool-sort
-    (whose key gains a depth-0 MSB under depth_split) and deferred
-    retirement. On TPU films are bit-identical across policies
-    (measured, experiments/ab_render_policy.py); on CPU the
-    interpret-mode packet kernel differs from the compiled dual-queue
-    loop by FMA-contraction ULPs in t/u/v (the dense-engine caveat), so
-    this test allows ULP-level tolerance."""
+    """Which engine serves the bounce and shadow traversals changes
+    which (exact-parity) kernel traces a ray, never the estimator: every
+    engine gives the SAME film, including with pool-sort and deferred
+    retirement. Engines differ from the compiled tiled loop by
+    FMA-contraction ULPs in t/u/v (the dense-engine caveat), so this
+    test allows ULP-level tolerance."""
     from rodent_tpu.render.integrator import render_iteration_persistent
     cam = Camera.make((0, 1, 2.7), (0, 0, -1), (0, 1, 0), 60.0, 24, 16)
 
@@ -278,12 +277,10 @@ def test_engine_routing_film_identical(cornell):
             cornell.device, cam, film_mod.new_film(24, 16), 24, 16, 2, 0,
             pool=200, **kw))
 
-    base = run(packet=True)
-    for kw in (dict(packet=True, bounce_packet=False, compact=2),
-               dict(packet=True, shadow_packet=False),
-               dict(packet=True, bounce_packet=False, compact=2,
-                    depth_split=True, sort="pool"),
-               dict(packet=True, bounce_packet=False, shadow_packet=False,
-                    compact=2, depth_split=True, sort="pool",
+    base = run(engine="tiled")
+    for kw in (dict(engine="tiled", compact=2, sort="pool"),
+               dict(engine="dense", sort="pool", retire_every=2),
+               dict(engine="walk-interpret"),
+               dict(engine="walk-interpret", sort="pool",
                     retire_every=2)):
         np.testing.assert_allclose(run(**kw), base, rtol=2e-6, atol=2e-7)

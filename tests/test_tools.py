@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 
 from rodent_tpu.io import formats, png
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 
-REF = "/root/reference/testing"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def run_tool(mod, *args):
@@ -19,7 +20,7 @@ def run_tool(mod, *args):
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [sys.executable, "-m", f"rodent_tpu.tools.{mod}", *map(str, args)],
-        capture_output=True, text=True, cwd="/root/repo", env=env)
+        capture_output=True, text=True, cwd=ROOT, env=env)
     assert r.returncode == 0, f"{mod} failed:\n{r.stdout}\n{r.stderr}"
     return r.stdout
 
@@ -33,7 +34,7 @@ def test_full_traversal_pipeline(tmp_path):
     out = run_tool("ray_gen", "primary", 0, 1, 2.7, 0, 0, -1, 0, 1, 0,
                    60, 64, 48, rays_f)
     assert "3072 rays" in out
-    out = run_tool("bvh_extractor", f"{REF}/cornell_box.obj", bvh_f,
+    out = run_tool("bvh_extractor", CORNELL_OBJ, bvh_f,
                    "--width", 8, "--width", 4)
     assert "BVH8" in out and "BVH4" in out
     out = run_tool("bench_traversal", "-bvh", bvh_f, "-ray", rays_f,
@@ -62,7 +63,7 @@ def test_full_traversal_pipeline(tmp_path):
 def test_converter_roundtrip(tmp_path):
     from rodent_tpu.tools.converter import read_bvh_bin, write_scene_data
     data = tmp_path / "data"
-    program = write_scene_data(f"{REF}/cornell_box.obj", str(data))
+    program = write_scene_data(CORNELL_OBJ, str(data))
     assert program["num_lights"] == 2
     assert (data / "scene.json").exists()
     verts = formats.read_lz4_buffer(data / "vertices.bin",
@@ -81,7 +82,7 @@ def test_converter_roundtrip(tmp_path):
 
 def test_render_tool_bench_output(tmp_path):
     out_png = tmp_path / "cornell.png"
-    out = run_tool("render", f"{REF}/cornell_box.obj", "--width", 48,
+    out = run_tool("render", CORNELL_OBJ, "--width", 48,
                    "--height", 32, "--eye", 0, 1, 2.7, "--dir", 0, 0, -1,
                    "--bench", 2, "--spp", 1, "--max-path-len", 4,
                    "-o", out_png, "--cpu", "--profile")
@@ -98,7 +99,7 @@ def test_render_tool_sort_and_sharded_paths(tmp_path):
     """--sort must reach every loop variant (it was silently ignored under
     --progressive/--sharded), and all three loop variants must produce the
     bit-identical film (RNG seeds depend only on sample/iter/pixel)."""
-    common = (f"{REF}/cornell_box.obj", "--width", 48, "--height", 32,
+    common = (CORNELL_OBJ, "--width", 48, "--height", 32,
               "--eye", 0, 1, 2.7, "--dir", 0, 0, -1, "--bench", 1,
               "--spp", 1, "--max-path-len", 4, "--cpu")
     a = tmp_path / "prog.png"
@@ -113,33 +114,22 @@ def test_render_tool_sort_and_sharded_paths(tmp_path):
     np.testing.assert_array_equal(ib, ic)
 
 
-def test_select_packet_tiers():
-    """select_packet = packet_mode's tier, demoted to the XLA dual-queue
-    off-TPU (except "dense", which is pure XLA). Table sizes are faked
-    with broadcast views (packet_mode only reads .size/.shape)."""
-    from rodent_tpu.render.compiler import packet_mode, select_packet
-
-    def fake(tri_rows, nodes_elems, tris_elems):
-        z = np.zeros(1, np.float32)
-        return {"bvh": {
-            "nodes": np.broadcast_to(z, (nodes_elems,)),
-            "tris": np.broadcast_to(z, (tri_rows, tris_elems // tri_rows)),
-        }}
-
-    mb = 1024 * 1024 // 4  # f32 elements per MB
-    dense = fake(4, 10 * mb, 4 * 112)
-    hybrid = fake(1000, 10 * mb, 10 * mb)
-    hbm = fake(1000, 10 * mb, 100 * mb)
-    giga = fake(1000, 100 * mb, 100 * mb)
-    assert packet_mode(dense) == "dense"
-    assert packet_mode(hybrid) == "hybrid"
-    assert packet_mode(hbm) == "hybrid-hbm"
-    assert packet_mode(giga) == "hybrid-giga"
-    # forced-CPU suite: every Mosaic tier demotes to the dual-queue
-    assert select_packet(dense) == "dense"
-    assert select_packet(hybrid) is False
-    assert select_packet(hbm) is False
-    assert select_packet(giga) is False
+@pytest.mark.parametrize("platform,engine", [
+    ("cpu", "tiled"), ("gpu", "walk")])
+def test_render_policy_per_platform(platform, engine):
+    """select_render_policy takes its engine from the backend: the XLA
+    engines on the CPU (tiled + staged compaction for BVH scenes), the
+    walk kernel on the GPU; enclosed interiors get the 64K pool on both.
+    Table sizes are faked with broadcast views."""
+    from rodent_tpu.render.compiler import select_render_policy
+    from rodent_tpu.utils.testscenes import make_hall
+    from rodent_tpu.render.compiler import compile_mesh
+    v, i = make_hall(4_000)
+    hall = compile_mesh(v, i)
+    pol = select_render_policy(hall.device, platform=platform)
+    assert pol["engine"] == engine
+    assert pol["pool"] == 1 << 16
+    assert ("compact" in pol) == (engine == "tiled")
 
 
 def test_checkpoint_resume(tmp_path):
@@ -154,7 +144,7 @@ def test_checkpoint_resume(tmp_path):
 
     # BVH cache: second build loads from disk and traverses identically
     from rodent_tpu.io import obj as obj_io
-    mesh, _, _ = obj_io.load_scene_mesh(f"{REF}/cornell_box.obj")
+    mesh, _, _ = obj_io.load_scene_mesh(CORNELL_OBJ)
     b1 = build_bvh_cached(mesh.vertices, mesh.indices,
                           cache_dir=str(tmp_path / "cache"))
     b2 = build_bvh_cached(mesh.vertices, mesh.indices,
@@ -173,9 +163,9 @@ def test_load_data_dir_matches_compile_obj(tmp_path):
     from rodent_tpu.tools.converter import write_scene_data
 
     data = tmp_path / "data"
-    write_scene_data(f"{REF}/cornell_box.obj", str(data), arity=8,
+    write_scene_data(CORNELL_OBJ, str(data), arity=8,
                      max_path_len=7)
-    direct = compile_obj(f"{REF}/cornell_box.obj", arity=8, max_path_len=7)
+    direct = compile_obj(CORNELL_OBJ, arity=8, max_path_len=7)
     loaded = load_data_dir(str(data))
     assert loaded.num_lights == direct.num_lights
     assert loaded.materials == direct.materials

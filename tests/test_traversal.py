@@ -2,15 +2,13 @@
 the brute-force all-triangles oracle (the reference's Embree-device role,
 SURVEY.md §4) on closest-hit distance for random and structured scenes."""
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
 from rodent_tpu.accel import build_bvh, WideBvh
 from rodent_tpu.io import formats, obj
 from rodent_tpu.traversal.api import (bvh_to_device, intersect_bruteforce,
                                       make_rays, occluded, traverse)
-
-REF = "/root/reference/testing"
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 
 
 def random_tri_soup(n, seed=0):
@@ -76,7 +74,7 @@ def test_traversal_matches_bruteforce_random(arity):
 
 
 def test_traversal_cornell_primary():
-    mesh, _, _ = obj.load_scene_mesh(f"{REF}/cornell_box.obj")
+    mesh, _, _ = obj.load_scene_mesh(CORNELL_OBJ)
     bvh = build_bvh(mesh.vertices, mesh.indices, arity=8)
     # primary rays from the reference camera (--eye 0 1 2.7 --dir 0 0 -1)
     W = H = 32
@@ -262,97 +260,6 @@ def test_octant_sort_preserves_results():
     assert (np.diff(octs)[same_cell] >= 0).all()
 
 
-def test_packet_kernel_matches_api():
-    """The Pallas shared-stack packet kernel (interpret mode on CPU) must
-    agree exactly with api.traverse, including any-hit."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)  # non-multiple of tile size
-    a = traverse(dev, rays)
-    b = traverse_packet(dev, rays, tile_rows=16)
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]),
-                               atol=1e-5, rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                  np.asarray(b["prim_id"]))
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    wa = np.asarray(traverse(dev, rays2, any_hit=True)["prim_id"]) >= 0
-    ga = np.asarray(traverse_packet(dev, rays2, any_hit=True,
-                                    tile_rows=16)["prim_id"]) >= 0
-    np.testing.assert_array_equal(wa, ga)
-
-
-def test_packet_kernel_carry_top_matches_api():
-    """The round-5 carry-top body (_kernel_ct: next pop rides the
-    while carry, stack.impala:25-50 trick; min-fold child select; fused
-    FMA slab) must agree exactly with api.traverse in every mode
-    combination, including any-hit and the HBM/giga DMA paths."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    a = traverse(dev, rays)
-    wa = np.asarray(traverse(dev, rays2, any_hit=True)["prim_id"]) >= 0
-    for kw in ({"select": "fold"},
-               {"select": "sort"},
-               {"select": "fold", "fma_slab": False},
-               {"select": "fold", "tris_hbm": True},
-               {"select": "fold", "tris_hbm": True, "nodes_hbm": True},
-               {"select": "fold", "tris_hbm": True, "nodes_hbm": True,
-                "prefetch": True}):
-        b = traverse_packet(dev, rays, tile_rows=4, carry_top=True, **kw)
-        np.testing.assert_allclose(np.asarray(a["t"]),
-                                   np.asarray(b["t"]),
-                                   atol=1e-5, rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                      np.asarray(b["prim_id"]))
-        ga = np.asarray(traverse_packet(dev, rays2, any_hit=True,
-                                        tile_rows=4, carry_top=True,
-                                        **kw)["prim_id"]) >= 0
-        np.testing.assert_array_equal(wa, ga)
-    # pop counters work in the carry-top body too (counted harness path)
-    from rodent_tpu.traversal import pallas_packet as pp
-    packed, nt = pp.pack_rays(rays, 4)
-    outs = pp._call_kernel(dev, packed, nt, 4, False, False,
-                           count_pops=True, carry_top=True)
-    cnt = np.asarray(outs[5])
-    assert int(cnt[::8, 0].sum()) > 0          # total pops counted
-    assert int(cnt[1::8, 0].sum()) > 0         # leaf pops counted
-
-
-def test_packet_kernel_tri16_matches_api():
-    """Tri16 leaf packets (14*16 = 224 floats = TWO VMEM lines per row,
-    fetched by one async copy in the HBM modes — the big-scene leaf-DMA
-    halving, VERDICT r4 item 3) must agree exactly with api.traverse in
-    every kernel body, including any-hit and prefetch."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=16, leaf_threshold=32)
-    assert bvh.tri_v0.shape[1] == 16
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    a = traverse(dev, rays)
-    wa = np.asarray(traverse(dev, rays2, any_hit=True)["prim_id"]) >= 0
-    for kw in ({},                                      # VMEM, legacy
-               {"tris_hbm": True, "prefetch": True},    # legacy + DMA
-               {"carry_top": True, "tris_hbm": True, "prefetch": True},
-               {"multi": 2, "tris_hbm": True, "prefetch": True}):
-        b = traverse_packet(dev, rays, tile_rows=4, **kw)
-        np.testing.assert_allclose(np.asarray(a["t"]),
-                                   np.asarray(b["t"]),
-                                   atol=1e-5, rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                      np.asarray(b["prim_id"]))
-        ga = np.asarray(traverse_packet(dev, rays2, any_hit=True,
-                                        tile_rows=4,
-                                        **kw)["prim_id"]) >= 0
-        np.testing.assert_array_equal(wa, ga)
-
-
 def test_tiled_waterfall_hooks_preserve_results():
     """The waterfall diagnostics (fixed_iters schedule pinning and the
     result-preserving ablations) must not change hits: 'leafalways' and
@@ -391,128 +298,6 @@ def test_tiled_waterfall_hooks_preserve_results():
                                    atol=1e-5, rtol=1e-6)
         np.testing.assert_array_equal(np.asarray(a4["prim_id"]),
                                       np.asarray(b["prim_id"]))
-
-
-def test_packet_kernel_multi_matches_api():
-    """The multi-tile kernel (n independent tiles per grid step with
-    interleaved pop chains — the VLIW-packing variant) must agree exactly
-    with api.traverse, including any-hit and with tris_hbm."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)  # non-multiple of the 2-tile block
-    a = traverse(dev, rays)
-    for kw in ({"multi": 2, "tile_rows": 1},
-               {"multi": 4, "tile_rows": 2},
-               {"multi": 2, "tile_rows": 2, "tris_hbm": True}):
-        b = traverse_packet(dev, rays, **kw)
-        np.testing.assert_allclose(np.asarray(a["t"]),
-                                   np.asarray(b["t"]),
-                                   atol=1e-5, rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                      np.asarray(b["prim_id"]))
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    wa = np.asarray(traverse(dev, rays2, any_hit=True)["prim_id"]) >= 0
-    ga = np.asarray(traverse_packet(dev, rays2, any_hit=True, multi=2,
-                                    tile_rows=1)["prim_id"]) >= 0
-    np.testing.assert_array_equal(wa, ga)
-
-
-def test_packet_kernel_diagnostics_demote_multi():
-    """Diagnostic options exist only in the single-tile kernel body; under
-    the default multi=2 they must be honored (by demoting to multi=1),
-    never silently dropped: an ablated run must actually ablate and a
-    counted run must return pop counts."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(256, seed=49)
-    base = np.asarray(traverse_packet(dev, rays, multi=2,
-                                      tile_rows=2)["prim_id"])
-    assert (base >= 0).any()
-    abl = np.asarray(traverse_packet(dev, rays, multi=2, tile_rows=2,
-                                     ablate=("noleaftest",))["prim_id"])
-    # noleaftest skips every triangle test: nothing can hit
-    assert not (abl >= 0).any()
-
-
-def test_packet_kernel_tris_hbm_matches_api():
-    """The big-scene mode (triangle table in HBM, one DMA per leaf pop)
-    must agree exactly with api.traverse — same walk, different triangle
-    row transport."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)
-    a = traverse(dev, rays)
-    b = traverse_packet(dev, rays, tile_rows=2, tris_hbm=True)
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]),
-                               atol=1e-5, rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                  np.asarray(b["prim_id"]))
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    wa = np.asarray(traverse(dev, rays2, any_hit=True)["prim_id"]) >= 0
-    ga = np.asarray(traverse_packet(dev, rays2, any_hit=True, tile_rows=2,
-                                    tris_hbm=True)["prim_id"]) >= 0
-    np.testing.assert_array_equal(wa, ga)
-
-
-def test_packet_kernel_nodes_hbm_matches_api():
-    """The giga-scene mode (node table ALSO in HBM — for >12M-tri scenes
-    whose node table exceeds VMEM — one DMA per node pop) must agree
-    exactly with api.traverse, alone and combined with tris_hbm, in both
-    the single-tile and multi-tile kernel bodies."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)
-    a = traverse(dev, rays)
-    for kw in ({"multi": 1}, {"multi": 1, "tris_hbm": True},
-               {"multi": 2, "tris_hbm": True}):
-        b = traverse_packet(dev, rays, tile_rows=2, nodes_hbm=True, **kw)
-        np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]),
-                                   atol=1e-5, rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                      np.asarray(b["prim_id"]))
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    wa = np.asarray(traverse(dev, rays2, any_hit=True)["prim_id"]) >= 0
-    ga = np.asarray(traverse_packet(dev, rays2, any_hit=True, tile_rows=2,
-                                    nodes_hbm=True, tris_hbm=True,
-                                    multi=2)["prim_id"]) >= 0
-    np.testing.assert_array_equal(wa, ga)
-
-
-def test_packet_kernel_prefetch_off_matches_on():
-    """The HBM modes' exact next-pop DMA prefetch (double-buffered lines,
-    prediction = leaf continuation / first pushed child / stack peek) is
-    a pure transport change: hits must be identical with it disabled, in
-    both kernel bodies, including the any-hit early exit that leaves a
-    predicted copy in flight (drained at loop exit)."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
-    verts, idx = random_tri_soup(257, seed=47)
-    bvh = build_bvh(verts, idx, arity=8, packet=8)
-    dev = bvh_to_device(bvh)
-    rays = random_rays(300, seed=49)
-    for kw in ({"multi": 1, "tris_hbm": True},
-               {"multi": 2, "tris_hbm": True, "nodes_hbm": True}):
-        a = traverse_packet(dev, rays, tile_rows=2, prefetch=False, **kw)
-        b = traverse_packet(dev, rays, tile_rows=2, prefetch=True, **kw)
-        np.testing.assert_array_equal(np.asarray(a["t"]),
-                                      np.asarray(b["t"]))
-        np.testing.assert_array_equal(np.asarray(a["prim_id"]),
-                                      np.asarray(b["prim_id"]))
-    rays2 = random_rays(256, seed=51, tmax=2.0)
-    wa = np.asarray(traverse_packet(dev, rays2, any_hit=True, tile_rows=2,
-                                    tris_hbm=True, nodes_hbm=True,
-                                    prefetch=False)["prim_id"]) >= 0
-    ga = np.asarray(traverse_packet(dev, rays2, any_hit=True, tile_rows=2,
-                                    tris_hbm=True, nodes_hbm=True,
-                                    prefetch=True)["prim_id"]) >= 0
-    np.testing.assert_array_equal(wa, ga)
 
 
 def chain_bvh(depth, arity=4):
@@ -568,8 +353,9 @@ def test_deep_tree_no_silent_stack_overflow():
     """Adversarial deep BVH (stack need ~60 > the old fixed 32/64): all
     three traversal paths must still produce brute-force-correct hits
     because stacks are now sized from BvhMeta at trace time."""
-    from rodent_tpu.traversal.pallas_packet import traverse_packet
+    from rodent_tpu.traversal.engine import traverse as engine_traverse
     from rodent_tpu.traversal.tiled import traverse_tiled
+    from rodent_tpu.traversal.walk import stack_depth
     bvh = chain_bvh(60)
     dev = bvh_to_device(bvh)
     assert dev["meta"].shared_stack == 60
@@ -583,16 +369,10 @@ def test_deep_tree_no_silent_stack_overflow():
     want = intersect_bruteforce(dev, rays)
     # every ray must find the NEAREST (first) triangle at t == 2.0
     np.testing.assert_allclose(np.asarray(want["t"]), 2.0, atol=1e-6)
+    # the walk kernel's per-ray stack is sized from the same metadata
+    assert stack_depth(dev) == 60
     for fn in (traverse, traverse_tiled,
-               lambda dv, rs: traverse_packet(dv, rs, tile_rows=1),
-               # HBM modes on the chain: every node pushes (inner, leaf)
-               # so node/leaf pops interleave — adversarial for the
-               # next-pop prefetch's peek prediction
-               lambda dv, rs: traverse_packet(dv, rs, tile_rows=1,
-                                              tris_hbm=True),
-               lambda dv, rs: traverse_packet(dv, rs, tile_rows=1,
-                                              tris_hbm=True,
-                                              nodes_hbm=True)):
+               lambda dv, rs: engine_traverse(dv, rs, "walk-interpret")):
         got = fn(dev, rays)
         np.testing.assert_allclose(np.asarray(got["t"]),
                                    np.asarray(want["t"]), atol=1e-6)
@@ -663,23 +443,135 @@ def test_coincident_degenerate_cluster_builds_and_traverses():
         check_match(bvh, rays)
 
 
-def test_pack_rays_pads_to_tiles():
-    """pack_rays pads a non-tile-multiple batch with dead rays (tmax=-1)
-    and rounds the tile count up to a multiple of `multi` (the shared
-    packer used by traverse_packet and the counted-pop harnesses)."""
-    from rodent_tpu.traversal.pallas_packet import pack_rays
-    r = np.random.RandomState(7)
-    n = 1000  # not a multiple of rows*128
-    org = r.randn(n, 3).astype(np.float32)
-    d = r.randn(n, 3).astype(np.float32)
-    rays = make_rays(org, d, np.zeros(n, np.float32),
-                     np.full(n, 9.0, np.float32))
-    packed, nt = pack_rays(rays, tile_rows=4, multi=3)
-    assert nt % 3 == 0 and nt * 4 * 128 >= n
-    assert packed.shape == (11, nt * 4, 128)
-    flat_tmax = np.asarray(packed[10]).reshape(-1)
-    np.testing.assert_array_equal(flat_tmax[:n], 9.0)
-    np.testing.assert_array_equal(flat_tmax[n:], -1.0)
-    # real components land unchanged: inv_dir is components 0..2
+# ---- the per-ray walk kernel (traversal/walk.py), interpret mode ----
+
+
+def traverse_walk(dev, rays, any_hit=False, interpret=True):
+    """Row-layout rays through the walk kernel (traversal.engine)."""
+    from rodent_tpu.traversal.engine import traverse as engine_traverse
+    return engine_traverse(dev, rays,
+                           "walk-interpret" if interpret else "walk",
+                           any_hit=any_hit)
+
+
+def _assert_same_hits(got, want, exact=True):
+    for k in ("prim_id", "geom_id"):
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k]))
+    for k in ("t", "u", "v"):
+        if exact:
+            np.testing.assert_array_equal(np.asarray(got[k]),
+                                          np.asarray(want[k]))
+        else:
+            np.testing.assert_allclose(np.asarray(got[k]),
+                                       np.asarray(want[k]),
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arity", [2, 4, 8])
+def test_walk_matches_api(arity):
+    """Same visit order, comparator network and update rules as
+    api.traverse: closest hits agree bit for bit, any-hit occlusion
+    agrees, at every arity."""
+    verts, idx = random_tri_soup(257, seed=3)
+    dev = bvh_to_device(build_bvh(verts, idx, arity=arity, packet=4))
+    rays = random_rays(300, seed=7)         # not a multiple of 32
+    _assert_same_hits(traverse_walk(dev, rays, interpret=True),
+                      traverse(dev, rays))
+    rays2 = random_rays(256, seed=9, tmax=2.0)
     np.testing.assert_array_equal(
-        np.asarray(packed[3]).reshape(-1)[:n], org[:, 0])
+        np.asarray(traverse_walk(dev, rays2, any_hit=True,
+                                 interpret=True)["prim_id"]) >= 0,
+        np.asarray(occluded(dev, rays2)))
+
+
+@pytest.mark.parametrize("n_rays", [1, 33, 200])
+def test_walk_matches_bruteforce_ragged(n_rays):
+    """Ray counts that are not multiples of the 128-ray tile pad with
+    dead rays; hits agree with the all-triangles oracle."""
+    verts, idx = random_tri_soup(150, seed=13)
+    dev = bvh_to_device(build_bvh(verts, idx, arity=8, packet=4))
+    rays = random_rays(n_rays, seed=17)
+    got = traverse_walk(dev, rays, interpret=True)
+    want = intersect_bruteforce(dev, rays)
+    assert got["t"].shape == (n_rays,)
+    np.testing.assert_allclose(np.asarray(got["t"]), np.asarray(want["t"]),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(np.asarray(got["prim_id"]) >= 0,
+                                  np.asarray(want["prim_id"]) >= 0)
+
+
+def test_walk_dead_rays_and_window():
+    """Dead rays (tmax < tmin) stay misses with t == tmax; hits respect
+    the [tmin, tmax] window."""
+    verts, idx = random_tri_soup(64, seed=5)
+    dev = bvh_to_device(build_bvh(verts, idx))
+    rays = random_rays(96, seed=9, tmin=0.0, tmax=0.5)
+    rays["tmax"] = rays["tmax"].at[::4].set(-1.0)
+    got = traverse_walk(dev, rays, interpret=True)
+    t = np.asarray(got["t"])
+    hit = np.asarray(got["prim_id"]) >= 0
+    assert not hit[::4].any()
+    np.testing.assert_array_equal(t[::4], -1.0)
+    assert (t[hit] <= 0.5).all()
+    _assert_same_hits(got, traverse(dev, rays))
+
+
+def test_walk_multi_packet_leaves():
+    """Leaves spanning several Tri packets continue in place (the
+    continuation entry is code - 1, never pushed)."""
+    verts, idx = random_tri_soup(257, seed=47)
+    bvh = build_bvh(verts, idx, arity=4, packet=4, leaf_threshold=32)
+    assert (bvh.prim_id[:, -1] < 0).sum() < bvh.num_packets  # multi
+    dev = bvh_to_device(bvh)
+    rays = random_rays(160, seed=49)
+    _assert_same_hits(traverse_walk(dev, rays, interpret=True),
+                      traverse(dev, rays))
+
+
+def test_walk_components_layout():
+    """The (R, 128) component entry used by the renderer agrees with the
+    row-layout wrapper."""
+    from rodent_tpu.core.tiles import tile
+    from rodent_tpu.traversal.walk import traverse_walk_components
+    verts, idx = random_tri_soup(100, seed=61)
+    dev = bvh_to_device(build_bvh(verts, idx, arity=8))
+    rays = random_rays(256, seed=67)
+    r = 2
+
+    def comp(k):
+        return tuple(tile(rays[k][:, i], r) for i in range(3))
+
+    out = traverse_walk_components(dev, comp("org"), comp("dir"),
+                                   comp("inv_dir"), comp("inv_org"),
+                                   tile(rays["tmin"], r),
+                                   tile(rays["tmax"], r), interpret=True)
+    assert out["t"].shape == (r, 128)
+    flat = {k: v.reshape(-1) for k, v in out.items()}
+    _assert_same_hits(flat, traverse_walk(dev, rays, interpret=True))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_lowers_for_gpu(any_hit):
+    """The kernel lowers to Triton IR for the CUDA backend without a
+    GPU present (catches primitives the Triton lowering lacks, such as
+    reduce_or)."""
+    import jax
+    verts, idx = random_tri_soup(64, seed=5)
+    dev = bvh_to_device(build_bvh(verts, idx, arity=8))
+    rays = random_rays(64, seed=9)
+    fn = jax.jit(lambda d, r: traverse_walk(d, r, any_hit=any_hit,
+                                            interpret=False))
+    text = fn.trace(dev, rays).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
+
+
+@pytest.mark.gpu
+def test_walk_compiled_matches_api(gpu_device):
+    """Compiled for the card, the kernel still agrees with api.traverse."""
+    verts, idx = random_tri_soup(257, seed=3)
+    dev = bvh_to_device(build_bvh(verts, idx, arity=8, packet=4))
+    rays = random_rays(300, seed=7)
+    _assert_same_hits(traverse_walk(dev, rays, interpret=False),
+                      traverse(dev, rays), exact=False)

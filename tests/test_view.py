@@ -8,8 +8,9 @@ import sys
 import numpy as np
 
 from rodent_tpu.tools.view import CameraRig, ansi_frame, apply_key
+from rodent_tpu.utils.testscenes import CORNELL_OBJ
 
-REF = "/root/reference/testing"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _orthonormal(rig):
@@ -96,11 +97,11 @@ def test_view_scripted_end_to_end(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [sys.executable, "-m", "rodent_tpu.tools.view",
-         f"{REF}/cornell_box.obj", "--eye", "0", "1", "2.7",
+         CORNELL_OBJ, "--eye", "0", "1", "2.7",
          "--dir", "0", "0", "-1", "--width", "32", "--height", "24",
          "--spp", "1", "--max-path-len", "3", "--iters", "4",
          "--keys", "Upq", "--quiet", "--cpu", "-o", str(out_png)],
-        capture_output=True, text=True, cwd="/root/repo", env=env)
+        capture_output=True, text=True, cwd=ROOT, env=env)
     assert r.returncode == 0, f"view failed:\n{r.stdout}\n{r.stderr}"
     from rodent_tpu.io import png
     img = png.read_png(out_png)
